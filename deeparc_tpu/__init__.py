@@ -1,4 +1,4 @@
-"""deeparc_tpu — a TPU-native structure-from-motion / bundle-adjustment framework.
+"""deeparc_tpu — a structure-from-motion / bundle-adjustment framework in JAX.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
 ``pureexe/deeparc-sfm`` (a C++/Ceres program; see SURVEY.md): the ``.deeparc``
@@ -8,8 +8,10 @@ solve-then-filter bundle adjustment — plus the numerical engine the reference
 delegated to Ceres (forward-mode autodiff, Levenberg-Marquardt trust region,
 Schur-complement elimination, reduced camera solves), reimplemented here as
 batched block-sparse linear algebra on flat arrays, jit/``lax.while_loop``
-drivers, Pallas kernels for the hot paths, and a ``shard_map`` distributed
-Schur complement over TPU meshes.
+drivers, a fused Pallas kernel (Triton route, CUDA GPUs) for the rig
+engine's hot path, and a ``shard_map`` distributed Schur complement over
+device meshes. The package name records where the system comes from; it
+runs on CUDA GPUs (NVIDIA H100) and, for tests, on the CPU.
 
 Layer map (mirrors SURVEY.md section 7):
   io/        .deeparc parser/writer, PLY export, BAL reader, synthetic rigs
@@ -17,7 +19,7 @@ Layer map (mirrors SURVEY.md section 7):
   scene      flat-array scene representation (replaces the pointer graph)
   residuals/ batched reprojection + hemisphere residuals and Jacobian blocks
   solver/    LM trust-region loop, Schur complement, PCG
-  kernels/   Pallas TPU kernels for residual/JtJ/Schur evaluation
+  kernels/   fused Pallas (Triton) linearization kernel + capability check
   parallel/  shard_map distributed Schur over a device mesh
   pipeline/  hemisphere fit -> freeze solve -> filter loop driver, CLI
 """

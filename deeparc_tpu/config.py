@@ -32,7 +32,7 @@ class SolverOptions:
     max_lm_diagonal: float = 1e32
     # 'dense_schur' (exact reduced camera solve, the reference's
     # ceres::DENSE_SCHUR) or 'iterative_schur' (matrix-free PCG on the
-    # Schur complement; the at-scale TPU path)
+    # Schur complement; the at-scale path)
     linear_solver: str = "dense_schur"
     # ITERATIVE_SCHUR preconditioner: 'block_jacobi' (6x6 Hcc blocks, the
     # Ceres SCHUR_JACOBI analogue) or 'jacobi' (scalar diagonal)
@@ -72,8 +72,8 @@ class PipelineOptions:
     write_snapshots: bool = True
     max_filter_rounds: int = 100            # safety cap on the while loop
     # 'auto' = dense (points x cells) grid engine for shared-extrinsic rigs,
-    # tile engine for non-shared (BAL-style) scenes — the two TPU-native
-    # at-scale paths; 'grid' / 'indexed' / 'tiles' force one.
+    # tile engine for non-shared (BAL-style) scenes — the two at-scale
+    # paths; 'grid' / 'indexed' / 'tiles' force one.
     # 'grid-sharded' / 'tiles-sharded' run the SAME pipeline loop with the
     # solves SPMD over a device mesh (parallel/sharded_{grid,tiles}.py) —
     # hemisphere fit, freeze solve, and the solve/filter/snapshot rounds
@@ -81,12 +81,8 @@ class PipelineOptions:
     engine: str = "auto"
     # mesh size for the *-sharded engines (None = all visible devices)
     devices: int | None = None
-    # tiles engine: storage dtype for the per-slot Jacobian planes the PCG
-    # sweeps re-read every iteration ("bf16" halves the sweeps' HBM
-    # traffic; accumulation stays f32 — see solver/tiles.make_tile_step)
-    sweep_dtype: str | None = None
-    # kernel implementation inside the chosen engine. 'auto' = the fused
-    # Pallas kernels on a real TPU backend (grid: impl='pallas', tiles:
-    # impl='pallas'), the portable XLA paths elsewhere; or force
-    # 'pallas' / 'planes' (grid) / 'xla' (tiles).
+    # kernel implementation inside the chosen engine. 'auto' = the grid
+    # engine's fused Triton kernel for float32 on a CUDA GPU
+    # (kernels.resolve_grid_impl), the plain XLA paths otherwise; or force
+    # 'pallas' / 'planes' (grid) / 'xla' / 'dual' (tiles).
     impl: str = "auto"

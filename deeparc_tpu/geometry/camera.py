@@ -1,6 +1,6 @@
 """Camera-center math for single and composed (ring -> arc) extrinsics.
 
-TPU-native batched equivalents of the Eigen formulas in the reference
+Batched JAX equivalents of the Eigen formulas in the reference
 (``src/DeepArcManager.cc:242-264``):
 
   single:    c = -R^T t                                        (cc:242-251)
@@ -14,6 +14,7 @@ picks the single/composed formula by the same rules as the PLY exporter
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from deeparc_tpu.geometry.rotation import angle_axis_to_matrix
@@ -22,7 +23,8 @@ from deeparc_tpu.geometry.rotation import angle_axis_to_matrix
 def camera_center_single(rot: jnp.ndarray, trans: jnp.ndarray) -> jnp.ndarray:
     """c = -R^T t for angle-axis rot (..., 3), trans (..., 3) -> (..., 3)."""
     R = angle_axis_to_matrix(rot)
-    return -jnp.einsum("...ji,...j->...i", R, trans)
+    return -jnp.einsum("...ji,...j->...i", R, trans,
+                       precision=jax.lax.Precision.HIGHEST)
 
 
 def camera_center_composed(
@@ -34,9 +36,12 @@ def camera_center_composed(
     """c = -R_ring^T t_ring - R_ring^T R_arc^T t_arc (DeepArcManager.cc:260)."""
     R_ring = angle_axis_to_matrix(rot_ring)
     R_arc = angle_axis_to_matrix(rot_arc)
-    term1 = jnp.einsum("...ji,...j->...i", R_ring, t_ring)
-    RtArc_t = jnp.einsum("...ji,...j->...i", R_arc, t_arc)
-    term2 = jnp.einsum("...ji,...j->...i", R_ring, RtArc_t)
+    term1 = jnp.einsum("...ji,...j->...i", R_ring, t_ring,
+                       precision=jax.lax.Precision.HIGHEST)
+    RtArc_t = jnp.einsum("...ji,...j->...i", R_arc, t_arc,
+                         precision=jax.lax.Precision.HIGHEST)
+    term2 = jnp.einsum("...ji,...j->...i", R_ring, RtArc_t,
+                       precision=jax.lax.Precision.HIGHEST)
     return -(term1 + term2)
 
 

@@ -1,6 +1,6 @@
 """The deeparc projection model: composed-extrinsic pinhole + radial distortion.
 
-TPU-native re-design of the reference's templated residual functor
+Array-native re-design of the reference's templated residual functor
 ``SnavelyReprojectionError`` (``src/snavely_reprojection_error.hh:38-118``).
 Instead of four runtime arities (1-2 focals x 0-2 distortions) and two
 extrinsic-chain shapes handled by C++ branches, every observation evaluates

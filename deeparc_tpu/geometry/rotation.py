@@ -1,6 +1,6 @@
 """Batched, differentiable rotation kernels (angle-axis centric).
 
-TPU-native replacements for the Ceres rotation routines the reference relies
+Batched JAX replacements for the Ceres rotation routines the reference relies
 on (SURVEY.md section 2.2): ``AngleAxisRotatePoint``
 (reference ``src/snavely_reprojection_error.hh:87``),
 ``AngleAxisToRotationMatrix`` (``src/Camera/Extrinsic.hh:14``),
@@ -13,6 +13,7 @@ compute.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 # Angle below which the small-angle (first-order Taylor) branch is used.
@@ -119,7 +120,8 @@ def so3_right_jacobian(aa: jnp.ndarray) -> jnp.ndarray:
     c2 = jnp.where(small, 1.0 / 6.0 - theta2 / 120.0, (t - jnp.sin(t)) / (t2 * t))
     K = cross_matrix(aa)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=aa.dtype), K.shape)
-    return eye - c1 * K + c2 * (K @ K)
+    KK = jnp.matmul(K, K, precision=jax.lax.Precision.HIGHEST)
+    return eye - c1 * K + c2 * KK
 
 
 def matrix_to_angle_axis(R: jnp.ndarray) -> jnp.ndarray:

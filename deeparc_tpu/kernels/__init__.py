@@ -1,14 +1,61 @@
-"""Pallas TPU kernels: fused linearization for the dense-grid BA engine.
+"""Hand-written accelerator kernels and the capability check that gates them.
 
-SURVEY.md section 7 stage 6 — the hot loops Ceres runs multithreaded on CPU
-(residual+Jacobian evaluation, normal-equation accumulation; call stack at
-SURVEY.md section 3.2) fused into single-pass on-chip kernels so no Jacobian
-plane ever round-trips through HBM.
+``rig_pallas`` holds the fused banded linearization of the dense-grid
+engine, written for Pallas's Triton route and compiled for a CUDA GPU. It is
+the one place in the package that runs hand-written device code; every
+other path is plain ``jax.numpy``/``lax`` that XLA compiles for any backend.
+
+The kernels run compiled only on a CUDA GPU, or in the Pallas interpreter
+when a caller passes ``interpret=True`` (the CPU tests). Asking for a
+compiled kernel anywhere else raises instead of interpreting.
 """
 
-from deeparc_tpu.kernels.rig_pallas import (  # noqa: F401
-    cost_grid,
-    flat_of_native,
-    linearize_grid,
-    native_of_flat,
-)
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+
+
+def kernel_platform() -> str | None:
+    """"triton" when the default device is a CUDA GPU the Pallas Triton
+    kernels compile for, else None."""
+    dev = jax.devices()[0]
+    if dev.platform == "gpu" and "rocm" not in dev.client.platform_version:
+        return "triton"
+    return None
+
+
+def require_kernel_backend() -> None:
+    """Raise unless the compiled kernels can run here."""
+    if kernel_platform() is None:
+        raise RuntimeError(
+            "the Pallas kernels compile only for a CUDA GPU; this process "
+            f"runs on {jax.devices()[0].platform!r}. Use impl='planes' (or "
+            "'auto'), or pass interpret=True to run the Pallas interpreter")
+
+
+def resolve_grid_impl(impl: str, dtype) -> tuple[str, str]:
+    """The grid engine's kernel implementation for a requested ``impl``.
+
+    ``auto`` picks the fused kernel ('pallas') on a CUDA GPU for float32
+    problems and the plain-XLA plane path ('planes') otherwise; 'xla' is
+    an alias of 'planes'. An explicit 'pallas' is checked here: it raises
+    without a GPU, or for a float64 problem (the kernel takes float32).
+    Returns (impl, reason) so callers can log the choice."""
+    if impl == "xla":
+        return "planes", "xla = the plane-form XLA path"
+    f32 = jnp.dtype(dtype) == jnp.float32
+    if impl == "auto":
+        if kernel_platform() is None:
+            return "planes", f"no kernel route on {jax.devices()[0].platform}"
+        if not f32:
+            return "planes", f"the kernel takes float32, problem is {dtype}"
+        return "pallas", "fused Triton kernel on a CUDA GPU"
+    if impl == "pallas":
+        require_kernel_backend()
+        if not f32:
+            raise ValueError(
+                f"impl='pallas' takes float32 problems, got {dtype}; use "
+                "impl='planes' or --f32")
+        return impl, "requested"
+    return impl, "requested"

@@ -1,32 +1,48 @@
-"""Fused Pallas linearization for the dense-grid rig engine.
+"""Fused banded linearization for the dense-grid rig engine (Hopper).
 
-The plane-form linearization (``solver/rig_planes.py``) is exact and
-MXU/VPU-friendly, but under plain XLA every one of its ~40 intermediate
-(N, T) planes is materialized in HBM because each plane feeds many consumers
-(the 18x18 slot Gram reads every camera-Jacobian plane pairwise). Measured on
-the v5e that makes one 8192-point chunk cost 6.2 ms — ~100x the roofline of
-the data it actually touches.
+One Pallas kernel pair, compiled through Pallas's Triton route, runs the
+whole plane-form linearization (``solver/rig_planes.py``) over each point
+tile's live band of cells (``solver/rig_band.py``) with every
+intermediate held in registers:
 
-This kernel runs the ENTIRE linearization for a tile of points with every
-intermediate held in VMEM:
+  reads  : the pre-gathered [xy0; xy1; mask] band stack (the problem data),
+           one (8, N) point pack, and tiny per-cell tables;
+  writes : per-point g_p/H_pp rows (9, N), the point-camera coupling E
+           (N, 3, 6, R), and per-program slot-Gram partials that XLA
+           scatter-adds into the (T, 18, 18) slot system by band row.
 
-  HBM reads   : observed-pixel planes xy0/xy1 + visibility mask (the problem
-                data), one (8, N) point/point-free pack, tiny per-cell tables.
-  HBM writes  : per-point gradient/Hessian blocks (12, N), the point-camera
-                coupling E (N, 3*Cn), and a (T, 342) slot-Gram accumulator
-                revisited across tiles.
+Without the fusion XLA writes each of the ~54 per-slot Jacobian products
+jx * P to device memory and reads it back for the Gram sums and the E
+contractions. The unbanded case is a single band of all ``t_pad`` cells
+starting at cell 0.
 
-Plane layout is TRANSPOSED relative to rig_planes: (T, n_tile) with cells in
-sublanes (T = arcs*rings, a multiple of 8 for real rigs) and points in lanes
-(tile = 256), so no plane pads.
+Design for a GPU, not for a sequential grid:
+
+* Blocks run in parallel in no order, so no sum is carried across grid
+  steps: each program writes its own slot-Gram partial and its own cost
+  partial, and XLA reduces them (a deterministic sum; no atomics).
+* Each program loads its own band start from ``starts``.
+* A program holds ``bp`` points; it walks its band in chunks of ``cb``
+  cells (``fori_loop``), so only (cb, bp) planes are live. Band widths are
+  multiples of 8; the E kernel's 16-cell chunks mask the last 8 rows when
+  the width is not a multiple of 16.
+* :func:`_sys_kernel` emits the point side, slot side and cost;
+  :func:`_e_kernel` (grid axis 1 = the point coordinate a) recomputes the
+  cheap residual chain and accumulates six (bp, R) blocks of E with
+  one-hot dot products at ``Precision.HIGHEST`` (full float32, not TF32).
+
+The kernels take float32 only; ``solver/rig_grid.py`` routes float64 to the
+plain banded path. ``interpret=True`` runs them in the Pallas interpreter
+(CPU tests); asking for the compiled kernel anywhere but on a CUDA GPU
+raises.
 
 The residual/Jacobian math is identical to ``rig_planes.linearize_planes``
 (itself the closed form of the reference functor chain,
 ``src/snavely_reprojection_error.hh:38-118``); parity is asserted in
-tests/test_pallas_kernels.py.
+tests/test_pallas_kernels.py and tests/test_rig_band.py.
 
 E column layout: the kernel emits E in its natural "native" order (per point
-row i: six R-wide extrinsic column groups then six K-wide intrinsic groups);
+row a: six R-wide extrinsic column groups then six K-wide intrinsic groups);
 :func:`native_of_flat` / :func:`flat_of_native` give the permutation to the
 flat camera-vector order used by the rest of the solver. Only C-sized
 vectors/matrices ever need permuting — never E itself.
@@ -40,7 +56,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from deeparc_tpu.kernels import require_kernel_backend
+from deeparc_tpu.solver.linalg import HIGHEST
+from deeparc_tpu.solver.rig_band import (
+    band_groups, banded_planes, gather_banded_planes,
+)
 
 # sp_pack column indices
 _RI = 0          # R_inner, row-major 3x3
@@ -65,13 +87,8 @@ _FRK = 72        # free_intr (6)
 SP_COLS = 78
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
 def pack_slot_tables(sp, grid, free_outer, free_inner, free_intr, t_pad):
     """(T_pad, SP_COLS) per-cell table; pad cells get z-safe translations."""
-    T = grid.mask.shape[-1] if grid.mask.ndim == 2 else grid.xy0.shape[-1]
     T = sp.fx.shape[0]
     dtype = sp.fx.dtype
     cols = [
@@ -156,31 +173,14 @@ def _chain(col, X, xy0, xy1, mask):
                 r0=r0, r1=r1)
 
 
-def _cost_kernel(sp_ref, pts_ref, xy0_ref, xy1_ref, mask_ref, cost_ref,
-                 *, loss, loss_scale):
-    col = lambda c: sp_ref[:, c:c + 1]
-    X = [pts_ref[a:a + 1, :] for a in range(3)]
-    mask = mask_ref[:]
-    c = _chain(col, X, xy0_ref[:], xy1_ref[:], mask)
-    s = c["r0"] * c["r0"] + c["r1"] * c["r1"]
-    val = 0.5 * jnp.sum(_loss_rho(s, loss, loss_scale) * mask)
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        cost_ref[0, 0] = val
-
-    @pl.when(pl.program_id(0) != 0)
-    def _():
-        cost_ref[0, 0] += val
-
-
 def _slot_products(col, X, pf, xy0, xy1, mask, loss, loss_scale,
                    intr_frozen=False):
     """Shared derivative chain: residual + per-slot Jacobian plane products.
 
     ``col(c)`` reads slot-table column c as a (rows, 1) plane; X/pf are the
-    (1, n) point / point-freeze rows. Returns (cost_val, r0, r1, jx_f, P):
-    loss-weighted residual planes, freeze-masked point-Jacobian planes
+    (1, n) point / point-freeze rows. Returns (rho, r0, r1, jx_f, P): the
+    per-slot robustified half-cost plane rho, loss-weighted residual
+    planes, freeze-masked point-Jacobian planes
     jx_f[k][b], and the freeze-masked camera-Jacobian planes P[k][j] — 18
     of them, or only the 12 extrinsic ones when ``intr_frozen`` (the
     intrinsic columns are zero anyway; the reference always freezes
@@ -193,7 +193,7 @@ def _slot_products(col, X, pf, xy0, xy1, mask, loss, loss_scale,
     r0, r1 = c["r0"], c["r1"]
 
     raw_s = r0 * r0 + r1 * r1
-    cost_val = 0.5 * jnp.sum(_loss_rho(raw_s, loss, loss_scale) * mask)
+    rho = 0.5 * _loss_rho(raw_s, loss, loss_scale) * mask
     w = _loss_weight(raw_s, loss, loss_scale)
     if w is None:
         wm = mask
@@ -250,7 +250,7 @@ def _slot_products(col, X, pf, xy0, xy1, mask, loss, loss_scale,
             + [jti[k][b] * col(_FRI + 3 + b) for b in range(3)]
             for k in range(2)
         ]
-        return cost_val, r0, r1, jx_f, P
+        return rho, r0, r1, jx_f, P
 
     # intrinsic columns [cx, cy, f0, f1, d0, d1]
     zero = jnp.zeros_like(wm)
@@ -272,626 +272,290 @@ def _slot_products(col, X, pf, xy0, xy1, mask, loss, loss_scale,
         + [jint[k][j] * col(_FRK + j) for j in range(6)]
         for k in range(2)
     ]
-    return cost_val, r0, r1, jx_f, P
+    return rho, r0, r1, jx_f, P
 
 
-def _linearize_kernel(
-    sp_ref, oho_ref, ohi_ref, ohk_ref, pts_ref, xy0_ref, xy1_ref, mask_ref,
-    pout_ref, e_ref, ghs_ref, cost_ref,
-    *, loss, loss_scale, n_ext_rows, n_intr,
-):
-    dtype = xy0_ref.dtype
-    R, K = n_ext_rows, n_intr
-    col = lambda c: sp_ref[:, c:c + 1]                    # (Tp, 1)
-    X = [pts_ref[a:a + 1, :] for a in range(3)]           # (1, n)
-    pf = [pts_ref[3 + a:4 + a, :] for a in range(3)]
-    mask = mask_ref[:]
-    cost_val, r0, r1, jx_f, P = _slot_products(
-        col, X, pf, xy0_ref[:], xy1_ref[:], mask, loss, loss_scale)
-
-    # ---- point side: sublane (cell-axis) reductions -> (1, n) rows
-    rows = []
-    for i in range(3):
-        rows.append(jnp.sum(jx_f[0][i] * r0 + jx_f[1][i] * r1, axis=0,
-                            keepdims=True))
-    hpp = {}
-    for i in range(3):
-        for j in range(i, 3):
-            hpp[i, j] = jnp.sum(
-                jx_f[0][i] * jx_f[0][j] + jx_f[1][i] * jx_f[1][j],
-                axis=0, keepdims=True)
-    for i in range(3):
-        for j in range(3):
-            rows.append(hpp[min(i, j), max(i, j)])
-    pout_ref[:] = jnp.concatenate(rows, axis=0)           # (12, n)
-
-    # ---- slot side: lane (point-axis) reductions, accumulated over tiles
-    ghs_cols = [
-        jnp.sum(P[0][i] * r0 + P[1][i] * r1, axis=1, keepdims=True)
-        for i in range(18)
-    ]
-    hcc = {}
-    for i in range(18):
-        for j in range(i, 18):
-            hcc[i, j] = jnp.sum(
-                P[0][i] * P[0][j] + P[1][i] * P[1][j], axis=1, keepdims=True)
-    for i in range(18):
-        for j in range(18):
-            ghs_cols.append(hcc[min(i, j), max(i, j)])
-    ghs_val = jnp.concatenate(ghs_cols, axis=1)           # (Tp, 342)
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        ghs_ref[:] = ghs_val
-        cost_ref[0, 0] = cost_val
-
-    @pl.when(pl.program_id(0) != 0)
-    def _():
-        ghs_ref[:] += ghs_val
-        cost_ref[0, 0] += cost_val
-
-    # ---- E: point-camera coupling, native column order (MXU contractions
-    # over the cell axis)
-    def dot_t(a, b):
-        return jax.lax.dot_general(
-            a, b, (((0,), (0,)), ((), ())), preferred_element_type=dtype)
-
-    e_segs = []
-    for i in range(3):
-        for j in range(6):
-            w_out = jx_f[0][i] * P[0][j] + jx_f[1][i] * P[1][j]
-            w_in = jx_f[0][i] * P[0][6 + j] + jx_f[1][i] * P[1][6 + j]
-            e_segs.append(dot_t(w_out, oho_ref[:]) + dot_t(w_in, ohi_ref[:]))
-        for j in range(6):
-            w_int = jx_f[0][i] * P[0][12 + j] + jx_f[1][i] * P[1][12 + j]
-            e_segs.append(dot_t(w_int, ohk_ref[:]))
-    e_ref[:] = jnp.concatenate(e_segs, axis=1)            # (n, 3*(6R+6K))
+# Points per program and cells per chunk. The system kernel reduces over
+# points (no dot), the E kernel contracts 16-cell chunks against the
+# one-hot rows with tensor-core dot products (M, N, K >= 16).
+SYS_BP, SYS_CB, SYS_WARPS = 64, 8, 4
+E_BP, E_CB, E_WARPS = 32, 16, 4
 
 
-def _pad_planes_t(x, t_pad, n_pad):
-    """(N, T) -> transposed, padded (t_pad, n_pad)."""
-    xt = x.T
-    T, N = xt.shape
-    return jnp.pad(xt, ((0, t_pad - T), (0, n_pad - N)))
+def _next_pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("loss", "loss_scale", "block_np", "interpret",
-                     "vmem_limit_mb"),
-)
-def linearize_grid(
-    points, point_free, sp, grid, free_outer, free_inner, free_intr,
-    loss="trivial", loss_scale=0.5, block_np=256, interpret=False,
-    vmem_limit_mb=100,
-):
-    """Fused full-problem linearization.
-
-    Returns (cost, g_p (N,3), hpp (N,3,3), g_slots (T,18),
-    hcc_slots (T,18,18), E_native (N, 3, 6R+6K)) — the same quantities as
-    ``rig_planes.linearize_planes`` summed over all points, with E in native
-    column order (see module docstring).
-    """
-    N, T = grid.xy0.shape
-    R = grid.onehot_outer.shape[1]
-    K = grid.onehot_intr.shape[1]
-    Cn = 6 * (R + K)
-    dtype = points.dtype
-    t_pad = _round_up(T, 8)
-    n_pad = _round_up(N, block_np)
-    n_tiles = n_pad // block_np
-
-    sp_pack = pack_slot_tables(sp, grid, free_outer, free_inner, free_intr,
-                               t_pad)
-    pts_pack = jnp.zeros((8, n_pad), dtype)
-    pts_pack = pts_pack.at[0:3, :N].set(points.T)
-    pts_pack = pts_pack.at[2, N:].set(1.0)   # z-safe padding points
-    pts_pack = pts_pack.at[3:6, :N].set(point_free.T.astype(dtype))
-    xy0t = _pad_planes_t(grid.xy0, t_pad, n_pad)
-    xy1t = _pad_planes_t(grid.xy1, t_pad, n_pad)
-    maskt = _pad_planes_t(grid.mask, t_pad, n_pad)
-    oh_pad = lambda oh: jnp.pad(oh, ((0, t_pad - T), (0, 0))).astype(dtype)
-
-    kernel = functools.partial(
-        _linearize_kernel, loss=loss, loss_scale=loss_scale,
-        n_ext_rows=R, n_intr=K,
-    )
-    full = lambda shape: pl.BlockSpec(shape, lambda i: (0, 0),
-                                      memory_space=pltpu.VMEM)
-    per_tile_cols = lambda rows: pl.BlockSpec(
-        (rows, block_np), lambda i: (0, i), memory_space=pltpu.VMEM)
-
-    pout, e_nat, ghs, cost = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            full((t_pad, SP_COLS)),
-            full((t_pad, R)),
-            full((t_pad, R)),
-            full((t_pad, K)),
-            per_tile_cols(8),
-            per_tile_cols(t_pad),
-            per_tile_cols(t_pad),
-            per_tile_cols(t_pad),
-        ],
-        out_specs=[
-            per_tile_cols(12),
-            pl.BlockSpec((block_np, 3 * Cn), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            full((t_pad, 342)),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((12, n_pad), dtype),
-            jax.ShapeDtypeStruct((n_pad, 3 * Cn), dtype),
-            jax.ShapeDtypeStruct((t_pad, 342), dtype),
-            jax.ShapeDtypeStruct((1, 1), dtype),
-        ],
-        # the kernel keeps ~80 (t_pad, block_np) planes live; at rig sizes
-        # (T=192, block 256) that is ~25 MB of scoped VMEM — raise the
-        # default 16 MB scoped limit instead of shrinking the tile
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=vmem_limit_mb * 1024 * 1024),
-        interpret=interpret,
-    )(sp_pack, oh_pad(grid.onehot_outer), oh_pad(grid.onehot_inner),
-      oh_pad(grid.onehot_intr), pts_pack, xy0t, xy1t, maskt)
-
-    g_p = pout[0:3, :N].T
-    hpp = pout[3:12, :N].T.reshape(N, 3, 3)
-    g_slots = ghs[:T, :18]
-    hcc_slots = ghs[:T, 18:].reshape(T, 18, 18)
-    e_out = e_nat[:N].reshape(N, 3, Cn)
-    return cost[0, 0], g_p, hpp, g_slots, hcc_slots, e_out
+def _triu_pairs(n):
+    return [(a, b) for a in range(n) for b in range(a, n)]
 
 
-# ---------------------------------------------------------------------------
-# Banded (live-window) kernels
-# ---------------------------------------------------------------------------
-# The monolithic kernels above pay for ALL T cells of every point tile —
-# at 5% visibility that is ~19x masked overcompute (the round-3 sparse
-# flagship burned slots, not observations). Real rig visibility is not
-# uniform: a surface point is seen from a CONTIGUOUS (cyclic) window of
-# turntable positions (self-occlusion), and real BAL graphs have the same
-# co-visibility locality. After solver/rig_band.py renumbers cells (RCM)
-# and sorts points by cyclic window center, each tile of block_np points
-# touches only a narrow band of w_band cells; these kernels run the exact
-# same slot algebra over just that band:
-#
-#   grid = (point_tile i, band_slab j); per-tile band starts come in as a
-#   scalar-prefetch array indexing 8-row slabs of the CYCLICALLY EXTENDED
-#   planes (rows t_pad..t_pad+w_band alias cells 0..w_band, so wrapped
-#   windows are contiguous; the caller folds the ghs extension rows back).
-#   pout/E blocks accumulate across j in VMEM (consecutive grid steps share
-#   the block); the (t_ext, 342) slot-Gram output stays VMEM-resident for
-#   the whole launch and takes slab adds at dynamic row offsets.
-#
-# The reference never pays for non-observations either (Ceres iterates real
-# residual blocks only, src/sfm.cc:36-48) — this is the grid engine's way
-# of not paying, while keeping every reduction dense and MXU/VPU-shaped.
+def _sys_kernel(starts_ref, widths_ref, tbl_ref, pts_ref, pxm_ref,
+                pout_ref, ghs_ref, cost_ref,
+                *, bp, cb, block_np, loss, loss_scale, intr_frozen):
+    """Point side (9, bp), slot-side Gram partials (n_g, w) and the cost
+    partial of ``bp`` points over their band of ``widths[tile]`` cells.
+    Partial rows past the band width are left unwritten (the wrapper
+    masks them)."""
+    prog = pl.program_id(0)
+    p0 = prog * bp
+    tile = p0 // block_np
+    row0 = starts_ref[tile] * 8
+    w = widths_ref[tile]
+    X = [pts_ref[a, pl.ds(p0, bp)][None, :] for a in range(3)]
+    pf = [pts_ref[3 + a, pl.ds(p0, bp)][None, :] for a in range(3)]
+    n_p = 12 if intr_frozen else 18
+    pairs = _triu_pairs(n_p)
+
+    def chunk(c, carry):
+        rows, cost = carry
+        r0_ = c * cb
+        col = lambda k: tbl_ref[k, pl.ds(row0 + r0_, cb)][:, None]
+        xy0, xy1, mask = (pxm_ref[k, pl.ds(r0_, cb), pl.ds(p0, bp)]
+                          for k in range(3))
+        rho, r0, r1, jx_f, P = _slot_products(
+            col, X, pf, xy0, xy1, mask, loss, loss_scale,
+            intr_frozen=intr_frozen)
+        new = [jnp.sum(jx_f[0][a] * r0 + jx_f[1][a] * r1, axis=0)
+               for a in range(3)]
+        new += [jnp.sum(jx_f[0][a] * jx_f[0][b] + jx_f[1][a] * jx_f[1][b],
+                        axis=0) for a, b in _triu_pairs(3)]
+        for a in range(n_p):
+            ghs_ref[prog, a, pl.ds(r0_, cb)] = jnp.sum(
+                P[0][a] * r0 + P[1][a] * r1, axis=1)
+        for e, (a, b) in enumerate(pairs):
+            ghs_ref[prog, n_p + e, pl.ds(r0_, cb)] = jnp.sum(
+                P[0][a] * P[0][b] + P[1][a] * P[1][b], axis=1)
+        rows = tuple(r + v for r, v in zip(rows, new))
+        return rows, cost + jnp.sum(rho, axis=0)
+
+    zero = jnp.zeros((bp,), pts_ref.dtype)
+    rows, cost = jax.lax.fori_loop(0, w // cb, chunk, ((zero,) * 9, zero))
+    for k in range(9):
+        pout_ref[k, pl.ds(p0, bp)] = rows[k]
+    cost_ref[prog] = jnp.sum(cost)
 
 
-def _banded_linearize_kernel(
-    starts_ref, tbl_ref, oho_ref, ohi_ref, ohk_ref, pts_ref, pxm_ref,
-    pout_ref, e_ref, ghs_ref, cost_ref,
-    *, loss, loss_scale, w_band, intr_frozen, t_lo=0,
-):
-    dtype = pxm_ref.dtype
-    i = pl.program_id(0)
-    row0 = starts_ref[i + t_lo] * 8
-    sp_band = tbl_ref[pl.ds(row0, w_band), :]             # (w_band, SP_COLS)
-    col = lambda c: sp_band[:, c:c + 1]
-    X = [pts_ref[a:a + 1, :] for a in range(3)]           # (1, n)
-    pf = [pts_ref[3 + a:4 + a, :] for a in range(3)]
-    mask = pxm_ref[2]
-    cost_val, r0, r1, jx_f, P = _slot_products(
-        col, X, pf, pxm_ref[0], pxm_ref[1], mask, loss, loss_scale,
-        intr_frozen=intr_frozen)
-    n_p = len(P[0])                 # 18, or 12 with frozen intrinsics
+def _e_kernel(starts_ref, widths_ref, tbl_ref, oho_ref, ohi_ref, ohk_ref,
+              pts_ref, pxm_ref, e_ref, ek_ref,
+              *, bp, cb, block_np, loss, loss_scale, intr_frozen):
+    """E rows of point coordinate a = program_id(1) for ``bp`` points:
+    six (bp, R) extrinsic blocks (outer + inner one-hots) and, unless the
+    intrinsics are frozen, six (bp, K) intrinsic blocks."""
+    prog = pl.program_id(0)
+    a = pl.program_id(1)
+    p0 = prog * bp
+    tile = p0 // block_np
+    row0 = starts_ref[tile] * 8
+    w = widths_ref[tile]
+    X = [pts_ref[k, pl.ds(p0, bp)][None, :] for k in range(3)]
+    pf = [pts_ref[3 + k, pl.ds(p0, bp)][None, :] for k in range(3)]
+    dtype = pts_ref.dtype
+    r_pad = oho_ref.shape[1]
+    k_pad = ohk_ref.shape[1]
 
-    # ---- point side: band-row reductions -> (1, n) rows ----
-    rows = []
-    for a in range(3):
-        rows.append(jnp.sum(jx_f[0][a] * r0 + jx_f[1][a] * r1, axis=0,
-                            keepdims=True))
-    hpp = {}
-    for a in range(3):
-        for b in range(a, 3):
-            hpp[a, b] = jnp.sum(
-                jx_f[0][a] * jx_f[0][b] + jx_f[1][a] * jx_f[1][b],
-                axis=0, keepdims=True)
-    for a in range(3):
-        for b in range(3):
-            rows.append(hpp[min(a, b), max(a, b)])
-    pout_ref[:] = jnp.concatenate(rows, axis=0)           # (12, n)
+    def dot_t(W, oh):
+        return jnp.dot(W.T, oh, precision=HIGHEST,
+                       preferred_element_type=dtype)
 
-    # ---- slot side: lane reductions into the resident extended ghs ----
-    ghs_cols = [
-        jnp.sum(P[0][a] * r0 + P[1][a] * r1, axis=1, keepdims=True)
-        for a in range(n_p)
-    ]
-    hcc = {}
-    for a in range(n_p):
-        for b in range(a, n_p):
-            hcc[a, b] = jnp.sum(
-                P[0][a] * P[0][b] + P[1][a] * P[1][b], axis=1, keepdims=True)
-    for a in range(n_p):
-        for b in range(n_p):
-            ghs_cols.append(hcc[min(a, b), max(a, b)])
-    ghs_val = jnp.concatenate(ghs_cols, axis=1)   # (w_band, n_p + n_p^2)
-
-    @pl.when(i == 0)
-    def _():
-        ghs_ref[:] = jnp.zeros_like(ghs_ref)
-        cost_ref[0, 0] = jnp.zeros((), dtype)
-
-    ghs_ref[pl.ds(row0, w_band), :] += ghs_val
-    cost_ref[0, 0] += cost_val
-
-    # ---- E: contractions over the band's cells (full-depth matmuls).
-    # Frozen intrinsics skip their 18 matmuls entirely (their E columns are
-    # zero — the reference always freezes intrinsics in BA, src/sfm.cc:60-62)
-    def dot_t(a, b):
-        return jax.lax.dot_general(
-            a, b, (((0,), (0,)), ((), ())), preferred_element_type=dtype)
-
-    oho = oho_ref[pl.ds(row0, w_band), :]
-    ohi = ohi_ref[pl.ds(row0, w_band), :]
-    e_segs = []
-    for a in range(3):
+    def chunk(c, accs):
+        r0_ = c * cb
+        live = jnp.broadcast_to(
+            ((r0_ + jnp.arange(cb)) < w)[:, None], (cb, bp))
+        col = lambda k: tbl_ref[k, pl.ds(row0 + r0_, cb)][:, None]
+        xy0, xy1, mask = (
+            plgpu.load(pxm_ref.at[k, pl.ds(r0_, cb), pl.ds(p0, bp)],
+                       mask=live, other=0.0)
+            for k in range(3))
+        _, _, _, jx_f, P = _slot_products(
+            col, X, pf, xy0, xy1, mask, loss, loss_scale,
+            intr_frozen=intr_frozen)
+        jx_a = [jnp.where(a == 0, jx_f[k][0],
+                          jnp.where(a == 1, jx_f[k][1], jx_f[k][2]))
+                for k in range(2)]
+        oho = oho_ref[pl.ds(row0 + r0_, cb), :]
+        ohi = ohi_ref[pl.ds(row0 + r0_, cb), :]
+        out = []
         for b in range(6):
-            w_out = jx_f[0][a] * P[0][b] + jx_f[1][a] * P[1][b]
-            w_in = jx_f[0][a] * P[0][6 + b] + jx_f[1][a] * P[1][6 + b]
-            e_segs.append(dot_t(w_out, oho) + dot_t(w_in, ohi))
+            w_out = jx_a[0] * P[0][b] + jx_a[1] * P[1][b]
+            w_in = jx_a[0] * P[0][6 + b] + jx_a[1] * P[1][6 + b]
+            out.append(accs[b] + dot_t(w_out, oho) + dot_t(w_in, ohi))
         if not intr_frozen:
-            ohk = ohk_ref[pl.ds(row0, w_band), :]
+            ohk = ohk_ref[pl.ds(row0 + r0_, cb), :]
             for b in range(6):
-                w_int = jx_f[0][a] * P[0][12 + b] + jx_f[1][a] * P[1][12 + b]
-                e_segs.append(dot_t(w_int, ohk))
-    # intr_frozen: the intrinsic E columns are omitted ENTIRELY (not just
-    # zeroed) — E shrinks to the 6R extrinsic columns, cutting its HBM
-    # write and every downstream Schur read/contraction by 6K/(6R+6K)
-    e_ref[:] = jnp.concatenate(e_segs, axis=1)        # (n, 3*Cn_e)
+                w_int = jx_a[0] * P[0][12 + b] + jx_a[1] * P[1][12 + b]
+                out.append(accs[6 + b] + dot_t(w_int, ohk))
+        return tuple(out)
+
+    init = (jnp.zeros((bp, r_pad), dtype),) * 6
+    if not intr_frozen:
+        init += (jnp.zeros((bp, k_pad), dtype),) * 6
+    accs = jax.lax.fori_loop(0, (w + cb - 1) // cb, chunk, init)
+    for b in range(6):
+        e_ref[pl.ds(p0, bp), a, b, :] = accs[b]
+        if not intr_frozen:
+            ek_ref[pl.ds(p0, bp), a, b, :] = accs[6 + b]
 
 
-def _extend_cyclic(x, w_band, axis=0):
-    """Append rows 0..w_band after the end so wrapped bands are contiguous."""
-    ext = jax.lax.slice_in_dim(x, 0, w_band, axis=axis)
-    return jnp.concatenate([x, ext], axis=axis)
-
-
-def banded_planes(grid, n_pad, ext_len):
-    """Stacked + cyclically-extended observation planes
-    (3, t_pad + ext_len, n_pad): [xy0; xy1; mask] transposed."""
-    t_pad = _round_up(grid.xy0.shape[1], 8)
-    stack = jnp.stack([
-        _pad_planes_t(grid.xy0, t_pad, n_pad),
-        _pad_planes_t(grid.xy1, t_pad, n_pad),
-        _pad_planes_t(grid.mask, t_pad, n_pad),
-    ])
-    return _extend_cyclic(stack, ext_len, axis=1)
-
-
-def gather_banded_planes(pxm_ext, starts, w_band, block_np,
-                         t_lo=0, t_hi=None):
-    """Pre-gather each point tile's live band into a DENSE stack
-    (3, w_band, (t_hi - t_lo) * block_np): tile i's lane block holds rows
-    [starts[i]*8, starts[i]*8 + w_band) of the extended planes. The planes
-    are constant across LM iterations, so this one gather per solve buys a
-    banded kernel with the monolithic kernel's step structure (one grid
-    step per point tile — no per-slab overhead, no dynamic input DMAs).
-    ``t_lo``/``t_hi`` restrict to a width-bucketed tile group (see
-    solver/rig_band: per-group stacks pay each group's own band width)."""
-    _, t_ext, n_pad = pxm_ext.shape
-    n_tiles = n_pad // block_np
-    if t_hi is None:
-        t_hi = n_tiles
-    starts_g = starts[t_lo:t_hi]
-    rows = starts_g[:, None] * 8 + jnp.arange(w_band, dtype=starts.dtype)
-    arr = pxm_ext.reshape(3, t_ext, n_tiles, block_np)[:, :, t_lo:t_hi]
-    idx = rows.T[None, :, :, None]           # (1, w_band, t_hi - t_lo, 1)
-    out = jnp.take_along_axis(arr, idx, axis=1)
-    return out.reshape(3, w_band, (t_hi - t_lo) * block_np)
-
-
-def _banded_tables(sp, grid, free_outer, free_inner, free_intr, t_pad,
-                   w_band, dtype):
-    """Cyclically-extended slot table + one-hot bin matrices (all tiny;
-    VMEM-resident across the whole banded launch)."""
-    T = grid.onehot_outer.shape[0]
-    oh_pad = lambda oh: _extend_cyclic(
-        jnp.pad(oh, ((0, t_pad - T), (0, 0))).astype(dtype), w_band)
-    tbl = _extend_cyclic(
-        pack_slot_tables(sp, grid, free_outer, free_inner, free_intr, t_pad),
-        w_band)
-    return (tbl, oh_pad(grid.onehot_outer), oh_pad(grid.onehot_inner),
-            oh_pad(grid.onehot_intr))
+def _ext_rows(x, t_pad, t_ext):
+    """Rows 0..t_ext of x repeated cyclically with period t_pad."""
+    return x[jnp.arange(t_ext) % t_pad]
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("w_band", "loss", "loss_scale", "block_np",
-                     "interpret", "vmem_limit_mb", "intr_frozen"),
+                     "interpret", "intr_frozen"),
 )
 def linearize_grid_banded(
-    points, point_free, sp, grid, free_outer, free_inner, free_intr, starts,
-    w_band, loss="trivial", loss_scale=0.5, block_np=256,
-    interpret=False, vmem_limit_mb=100, intr_frozen=False, pxm=None,
+    points, point_free, sp, grid, free_outer, free_inner, free_intr,
+    starts=None, w_band=None, loss="trivial", loss_scale=0.5, block_np=256,
+    interpret=False, intr_frozen=False, pxm=None,
 ):
-    """Fused linearization over per-tile cell bands (see section comment).
+    """Fused linearization over per-tile cell bands.
 
-    ``starts`` is the (n_pad / block_np,) int32 8-row-block start array
-    from :func:`deeparc_tpu.solver.rig_band.band_grid`; ``w_band`` either a
-    single static band width in cells (multiple of 8, <= t_pad) paid by
-    EVERY tile, or a tuple of ``(w, tile_lo, tile_hi)`` width-bucket groups
-    (band_grid's per-tile band cost: each contiguous tile group pays only
-    its own width — one pallas launch per group, same math); ``pxm`` the
-    pre-gathered :func:`gather_banded_planes` stack(s) for THIS (starts,
-    w_band, block_np) — built once per solve since the observation planes
-    never change during LM (band_grid attaches them). ``intr_frozen=True``
-    writes zeros for the intrinsic E columns without computing them.
-    Returns the same quantities as :func:`linearize_grid` — identical math,
-    skipping cells outside each tile's band (which band_grid guarantees
-    are dead).
+    ``starts`` is the (n_pad / block_np,) int32 8-cell-slab start array
+    from :func:`deeparc_tpu.solver.rig_band.band_grid`; ``w_band`` either
+    one static band width in cells (multiple of 8, <= t_pad) paid by every
+    tile, or a tuple of ``(w, tile_lo, tile_hi)`` width-bucket groups (each
+    tile walks only its group's width); ``pxm`` the pre-gathered
+    :func:`~deeparc_tpu.solver.rig_band.gather_banded_planes` stack(s) for
+    THIS (starts, w_band, block_np). With ``starts=None`` the whole grid is
+    one band of ``t_pad`` cells from cell 0 (no band prep).
+    ``intr_frozen=True`` omits the intrinsic E columns (E is (N, 3, 6R)).
+
+    Returns (cost, g_p (N,3), hpp (N,3,3), g_slots (T,18),
+    hcc_slots (T,18,18), E_native (N, 3, Cn)) — the same quantities as
+    ``rig_planes.linearize_planes`` with E in native column order.
     """
+    if not interpret:
+        require_kernel_backend()
     N, T = grid.xy0.shape
     R = grid.onehot_outer.shape[1]
     K = grid.onehot_intr.shape[1]
-    Cn = 6 * R if intr_frozen else 6 * (R + K)
     dtype = points.dtype
-    t_pad = _round_up(T, 8)
+    t_pad = -(-T // 8) * 8
+    if starts is None:
+        n_pad = -(-N // block_np) * block_np
+        starts = jnp.zeros((n_pad // block_np,), jnp.int32)
+        w_band, pxm = t_pad, banded_planes(grid, n_pad, 0)
     if isinstance(w_band, tuple):
-        n_tiles = w_band[-1][2]
-        n_pad = n_tiles * block_np
-        groups = w_band
+        n_pad = w_band[-1][2] * block_np
     else:
-        n_pad = _round_up(N, block_np) if pxm is None else pxm.shape[-1]
-        n_tiles = n_pad // block_np
-        groups = ((w_band, 0, n_tiles),)
+        first = pxm[0] if isinstance(pxm, tuple) else pxm
+        n_pad = (-(-N // block_np) * block_np if pxm is None
+                 else first.shape[-1])
+    groups = band_groups(w_band, n_pad, block_np)
+    if starts.shape[0] != n_pad // block_np:
+        raise ValueError(
+            f"band start table has {starts.shape[0]} tiles, the layout "
+            f"{n_pad // block_np} (built for another block_np?)")
     for w, _, _ in groups:
-        assert w % 8 == 0 and w <= t_pad, (w, t_pad)
+        if w % 8 or w > t_pad:
+            raise ValueError(f"band width {w} is not a multiple of 8 "
+                             f"within t_pad={t_pad}")
     w_max = max(w for w, _, _ in groups)
     if pxm is None:
         pxm_ext = banded_planes(grid, n_pad, w_max)
-        pxms = tuple(
-            gather_banded_planes(pxm_ext, starts, w, block_np, lo, hi)
-            for w, lo, hi in groups)
-    else:
-        pxms = pxm if isinstance(pxm, tuple) else (pxm,)
-    assert len(pxms) == len(groups)
-    assert starts.shape[0] == n_tiles, (
-        "band start table was built for a different point-tile width",
-        starts.shape[0], n_tiles, block_np)
-    t_ext = t_pad + w_max
+        pxm = tuple(gather_banded_planes(pxm_ext, starts, w, block_np, lo, hi)
+                    for w, lo, hi in groups)
+    pxms = pxm if isinstance(pxm, tuple) else (pxm,)
 
-    tbl, oho, ohi, ohk = _banded_tables(
-        sp, grid, free_outer, free_inner, free_intr, t_pad, w_max, dtype)
+    # tables cover every row a chunk can touch: start + round_up(w, 16)
+    t_ext = t_pad + -(-w_max // E_CB) * E_CB
+    tbl = _ext_rows(pack_slot_tables(sp, grid, free_outer, free_inner,
+                                     free_intr, t_pad), t_pad, t_ext).T
+    r_pad = max(_next_pow2(R), 16)
+    k_pad = max(_next_pow2(K), 16)
+
+    def onehot_ext(oh, width):
+        oh = jnp.pad(oh.astype(dtype),
+                     ((0, t_pad - T), (0, width - oh.shape[1])))
+        return _ext_rows(oh, t_pad, t_ext)
+
+    oho = onehot_ext(grid.onehot_outer, r_pad)
+    ohi = onehot_ext(grid.onehot_inner, r_pad)
+    ohk = onehot_ext(grid.onehot_intr, k_pad)
     pts_pack = jnp.zeros((8, n_pad), dtype)
     pts_pack = pts_pack.at[0:3, :N].set(points.T)
     pts_pack = pts_pack.at[2, N:].set(1.0)   # z-safe padding points
     pts_pack = pts_pack.at[3:6, :N].set(point_free.T.astype(dtype))
 
+    # one launch per kernel for all width groups: the group stacks are
+    # padded to one width (rows past a tile's own width are masked or
+    # never read) and each program reads its tile's width at run time
+    if [(lo, hi) for _, lo, hi in groups] != list(zip(
+            [0] + [hi for _, _, hi in groups[:-1]],
+            [hi for _, _, hi in groups])) or groups[0][1] != 0:
+        raise ValueError(f"band groups must tile [0, n) in order: {groups}")
+    for (w, lo, hi), pxm_g in zip(groups, pxms):
+        if pxm_g.shape != (3, w, (hi - lo) * block_np):
+            raise ValueError(f"band stack {pxm_g.shape} != "
+                             f"{(3, w, (hi - lo) * block_np)}")
+    widths = jnp.asarray(np.concatenate(
+        [np.full(hi - lo, w, np.int32) for w, lo, hi in groups]))
+    pxm_u = jnp.concatenate(
+        [jnp.pad(p, ((0, 0), (0, w_max - w), (0, 0)))
+         for (w, _, _), p in zip(groups, pxms)], axis=2)
+
     n_p = 12 if intr_frozen else 18
-    gw = n_p + n_p * n_p
-    full = lambda shape: pl.BlockSpec(shape, lambda i, s: (0, 0),
-                                      memory_space=pltpu.VMEM)
-
-    pout_parts, e_parts, ghs_sum, cost_sum = [], [], None, None
-    for (w_g, t_lo, t_hi), pxm_g in zip(groups, pxms):
-        g_tiles = t_hi - t_lo
-        if g_tiles == 0:
-            continue
-        assert pxm_g.shape == (3, w_g, g_tiles * block_np), (
-            pxm_g.shape, (3, w_g, g_tiles * block_np))
-        kernel = functools.partial(
-            _banded_linearize_kernel, loss=loss, loss_scale=loss_scale,
-            w_band=w_g, intr_frozen=intr_frozen, t_lo=t_lo)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(g_tiles,),
-            in_specs=[
-                full((t_ext, SP_COLS)),
-                full((t_ext, R)),
-                full((t_ext, R)),
-                full((t_ext, K)),
-                pl.BlockSpec((8, block_np),
-                             lambda i, s, t0=t_lo: (0, t0 + i),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((3, w_g, block_np), lambda i, s: (0, 0, i),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((12, block_np), lambda i, s: (0, i),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((block_np, 3 * Cn), lambda i, s: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((t_ext, gw), lambda i, s: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-            ],
-        )
-        pout_g, e_g, ghs_g, cost_g = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=[
-                jax.ShapeDtypeStruct((12, g_tiles * block_np), dtype),
-                jax.ShapeDtypeStruct((g_tiles * block_np, 3 * Cn), dtype),
-                jax.ShapeDtypeStruct((t_ext, gw), dtype),
-                jax.ShapeDtypeStruct((1, 1), dtype),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=vmem_limit_mb * 1024 * 1024),
-            interpret=interpret,
-        )(starts, tbl, oho, ohi, ohk, pts_pack, pxm_g)
-        pout_parts.append(pout_g)
-        e_parts.append(e_g)
-        ghs_sum = ghs_g if ghs_sum is None else ghs_sum + ghs_g
-        cost_sum = cost_g if cost_sum is None else cost_sum + cost_g
-
-    pout = jnp.concatenate(pout_parts, axis=1)
-    e_nat = jnp.concatenate(e_parts, axis=0)
-    ghs, cost = ghs_sum, cost_sum
-    # fold the cyclic extension rows back onto their base cells (rows past
-    # t_pad + w_g of any one group are zero, so folding at w_max is exact)
-    ghs = ghs[:t_pad].at[:w_max].add(ghs[t_pad:])
-    g_p = pout[0:3, :N].T
-    hpp = pout[3:12, :N].T.reshape(N, 3, 3)
-    if intr_frozen:
-        # embed the 12-wide extrinsic-only slot system into the 18-wide
-        # layout downstream consumes (intrinsic entries identically zero)
-        g_slots = jnp.zeros((T, 18), dtype).at[:, :12].set(ghs[:T, :12])
-        hcc_slots = jnp.zeros((T, 18, 18), dtype).at[:, :12, :12].set(
-            ghs[:T, 12:].reshape(T, 12, 12))
-    else:
-        g_slots = ghs[:T, :18]
-        hcc_slots = ghs[:T, 18:].reshape(T, 18, 18)
-    e_out = e_nat[:N].reshape(N, 3, Cn)
-    return cost[0, 0], g_p, hpp, g_slots, hcc_slots, e_out
-
-
-def _banded_cost_kernel(starts_ref, tbl_ref, pts_ref, pxm_ref, cost_ref,
-                        *, loss, loss_scale, w_band, t_lo=0):
-    i = pl.program_id(0)
-    row0 = starts_ref[i + t_lo] * 8
-    sp_band = tbl_ref[pl.ds(row0, w_band), :]
-    col = lambda c: sp_band[:, c:c + 1]
-    X = [pts_ref[a:a + 1, :] for a in range(3)]
-    mask = pxm_ref[2]
-    c = _chain(col, X, pxm_ref[0], pxm_ref[1], mask)
-    s = c["r0"] * c["r0"] + c["r1"] * c["r1"]
-    val = 0.5 * jnp.sum(_loss_rho(s, loss, loss_scale) * mask)
-
-    @pl.when(i == 0)
-    def _():
-        cost_ref[0, 0] = val
-
-    @pl.when(i != 0)
-    def _():
-        cost_ref[0, 0] += val
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("w_band", "loss", "loss_scale", "block_np",
-                     "interpret"),
-)
-def cost_grid_banded(points, sp, grid, starts, w_band,
-                     loss="trivial", loss_scale=0.5, block_np=1024,
-                     interpret=False, pxm=None):
-    """Banded robustified half-SSE (the trial-cost pass over live bands).
-
-    ``starts``/``pxm`` must be the band table and pre-gathered plane
-    stack(s) built for THIS ``block_np`` (the cost pass uses wider tiles
-    than the linearize; band_grid builds one of each). ``w_band`` is one
-    static width or a tuple of ``(w, tile_lo, tile_hi)`` groups (see
-    :func:`linearize_grid_banded`)."""
-    N, T = grid.xy0.shape
-    dtype = points.dtype
-    t_pad = _round_up(T, 8)
-    if isinstance(w_band, tuple):
-        n_tiles = w_band[-1][2]
-        n_pad = n_tiles * block_np
-        groups = w_band
-    else:
-        n_pad = _round_up(N, block_np) if pxm is None else pxm.shape[-1]
-        n_tiles = n_pad // block_np
-        groups = ((w_band, 0, n_tiles),)
-    for w, _, _ in groups:
-        assert w % 8 == 0 and w <= t_pad, (w, t_pad)
-    w_max = max(w for w, _, _ in groups)
-    if pxm is None:
-        pxm_ext = banded_planes(grid, n_pad, w_max)
-        pxms = tuple(
-            gather_banded_planes(pxm_ext, starts, w, block_np, lo, hi)
-            for w, lo, hi in groups)
-    else:
-        pxms = pxm if isinstance(pxm, tuple) else (pxm,)
-    assert len(pxms) == len(groups)
-    assert starts.shape[0] == n_tiles, (
-        "band start table was built for a different point-tile width",
-        starts.shape[0], n_tiles, block_np)
-    t_ext = t_pad + w_max
-
-    zeros6 = jnp.zeros((T, 6), dtype)
-    tbl, _, _, _ = _banded_tables(sp, grid, zeros6, zeros6, zeros6, t_pad,
-                                  w_max, dtype)
-    pts_pack = jnp.zeros((8, n_pad), dtype)
-    pts_pack = pts_pack.at[0:3, :N].set(points.T)
-    pts_pack = pts_pack.at[2, N:].set(1.0)
-
-    total = None
-    for (w_g, t_lo, t_hi), pxm_g in zip(groups, pxms):
-        g_tiles = t_hi - t_lo
-        if g_tiles == 0:
-            continue
-        assert pxm_g.shape == (3, w_g, g_tiles * block_np), (
-            pxm_g.shape, (3, w_g, g_tiles * block_np))
-        kernel = functools.partial(_banded_cost_kernel, loss=loss,
-                                   loss_scale=loss_scale, w_band=w_g,
-                                   t_lo=t_lo)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(g_tiles,),
-            in_specs=[
-                pl.BlockSpec((t_ext, SP_COLS), lambda i, s: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((8, block_np),
-                             lambda i, s, t0=t_lo: (0, t0 + i),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((3, w_g, block_np), lambda i, s: (0, 0, i),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
-        )
-        cost = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((1, 1), dtype),
-            interpret=interpret,
-        )(starts, tbl, pts_pack, pxm_g)
-        total = cost[0, 0] if total is None else total + cost[0, 0]
-    return total
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("loss", "loss_scale", "block_np", "interpret"),
-)
-def cost_grid(points, sp, grid, loss="trivial", loss_scale=0.5,
-              block_np=1024, interpret=False):
-    """Fused robustified half-SSE over the grid (the trial-cost pass)."""
-    N, T = grid.xy0.shape
-    dtype = points.dtype
-    t_pad = _round_up(T, 8)
-    n_pad = _round_up(N, block_np)
-    n_tiles = n_pad // block_np
-
-    zeros6 = jnp.zeros((T, 6), dtype)
-    sp_pack = pack_slot_tables(sp, grid, zeros6, zeros6, zeros6, t_pad)
-    pts_pack = jnp.zeros((8, n_pad), dtype)
-    pts_pack = pts_pack.at[0:3, :N].set(points.T)
-    pts_pack = pts_pack.at[2, N:].set(1.0)
-    xy0t = _pad_planes_t(grid.xy0, t_pad, n_pad)
-    xy1t = _pad_planes_t(grid.xy1, t_pad, n_pad)
-    maskt = _pad_planes_t(grid.mask, t_pad, n_pad)
-
-    kernel = functools.partial(_cost_kernel, loss=loss, loss_scale=loss_scale)
-    full = lambda shape: pl.BlockSpec(shape, lambda i: (0, 0),
-                                      memory_space=pltpu.VMEM)
-    per_tile_cols = lambda rows: pl.BlockSpec(
-        (rows, block_np), lambda i: (0, i), memory_space=pltpu.VMEM)
-
-    cost = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            full((t_pad, SP_COLS)),
-            per_tile_cols(8),
-            per_tile_cols(t_pad),
-            per_tile_cols(t_pad),
-            per_tile_cols(t_pad),
+    n_g = n_p + n_p * (n_p + 1) // 2
+    common = dict(block_np=block_np, loss=loss, loss_scale=loss_scale,
+                  intr_frozen=intr_frozen)
+    bp = min(SYS_BP, block_np)
+    pout, ghs_p, cost_p = pl.pallas_call(
+        functools.partial(_sys_kernel, bp=bp, cb=SYS_CB, **common),
+        grid=(n_pad // bp,),
+        out_shape=[
+            jax.ShapeDtypeStruct((9, n_pad), dtype),
+            jax.ShapeDtypeStruct((n_pad // bp, n_g, w_max), dtype),
+            jax.ShapeDtypeStruct((n_pad // bp,), dtype),
         ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
-        out_shape=jax.ShapeDtypeStruct((1, 1), dtype),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=SYS_WARPS),
         interpret=interpret,
-    )(sp_pack, pts_pack, xy0t, xy1t, maskt)
-    return cost[0, 0]
+        name="rig_band_sys",
+    )(starts, widths, tbl, pts_pack, pxm_u)
+    # per-program partials -> per-tile sums (rows past the tile's width
+    # were never written) -> slot rows modulo t_pad
+    n_tiles = n_pad // block_np
+    live = jnp.arange(w_max)[None, :] < widths[:, None]       # (tiles, w)
+    per_tile = ghs_p.reshape(n_tiles, block_np // bp, n_g, w_max)
+    per_tile = jnp.where(live[:, None, None, :], per_tile, 0).sum(1)
+    rows = (starts[:, None] * 8 + jnp.arange(w_max)) % t_pad
+    ghs = jnp.zeros((t_pad, n_g), dtype).at[rows.reshape(-1)].add(
+        jnp.swapaxes(per_tile, 1, 2).reshape(-1, n_g))
+    cost = jnp.sum(cost_p)
+
+    bp = min(E_BP, block_np)
+    e_u, ek_u = pl.pallas_call(
+        functools.partial(_e_kernel, bp=bp, cb=E_CB, **common),
+        grid=(n_pad // bp, 3),
+        out_shape=[
+            jax.ShapeDtypeStruct((n_pad, 3, 6, r_pad), dtype),
+            jax.ShapeDtypeStruct(
+                (n_pad if not intr_frozen else 1, 3, 6, k_pad), dtype),
+        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=E_WARPS),
+        interpret=interpret,
+        name="rig_band_e",
+    )(starts, widths, tbl, oho, ohi, ohk, pts_pack, pxm_u)
+
+    g_p = pout[0:3, :N].T
+    tri = np.zeros((3, 3), np.int32)
+    for e, (a, b) in enumerate(_triu_pairs(3)):
+        tri[a, b] = tri[b, a] = 3 + e
+    hpp = pout[tri.reshape(-1), :N].T.reshape(N, 3, 3)
+    sq = np.zeros((n_p, n_p), np.int32)
+    for e, (a, b) in enumerate(_triu_pairs(n_p)):
+        sq[a, b] = sq[b, a] = n_p + e
+    g_sl = ghs[:T, :n_p]
+    h_sl = ghs[:T, sq.reshape(-1)].reshape(T, n_p, n_p)
+    g_slots = jnp.zeros((T, 18), dtype).at[:, :n_p].set(g_sl)
+    hcc_slots = jnp.zeros((T, 18, 18), dtype).at[:, :n_p, :n_p].set(h_sl)
+    e_nat = e_u[:N, ..., :R].reshape(N, 3, 6 * R)
+    if not intr_frozen:
+        e_int = ek_u[:N, ..., :K].reshape(N, 3, 6 * K)
+        e_nat = jnp.concatenate([e_nat, e_int], axis=-1)
+    return cost, g_p, hpp, g_slots, hcc_slots, e_nat

@@ -11,7 +11,8 @@ section 7 stage 7. Design:
   * a 2-D ``Mesh`` shaped (hosts, chips-per-host): point-major arrays shard
     over BOTH axes (pure data parallelism over point rows), and the reduced
     camera system's psums run over the ("host", "chip") axis pair — XLA
-    routes the intra-host part over ICI and the cross-host part over DCN;
+    routes the intra-host part over the host's links and the cross-host
+    part over the network;
   * host-local loading: each process materializes only its slice of the
     point-major arrays and assembles the global sharded array with
     ``jax.make_array_from_process_local_data`` — no host ever holds the
@@ -43,9 +44,9 @@ def initialize_distributed(
     """Initialize jax.distributed if a multi-process setup is configured.
 
     Explicit args win; otherwise the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or a
-    TPU-pod environment where initialize() autodetects) are used. Returns
-    True when distributed mode is active.
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) are
+    used; nothing is autodetected. Returns True when distributed mode is
+    active.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS")
@@ -66,8 +67,9 @@ def initialize_distributed(
 def make_host_mesh(devices=None) -> Mesh:
     """(hosts, chips-per-host) mesh over all global devices.
 
-    Rows are processes (DCN axis), columns the process-local devices (ICI
-    axis). Single-process: a (1, n) mesh — the same code path everywhere.
+    Rows are processes (the cross-host axis), columns the process-local
+    devices. Single-process: a (1, n) mesh — the same code path
+    everywhere.
     """
     devices = list(devices if devices is not None else jax.devices())
     by_proc = {}
@@ -144,8 +146,8 @@ def solve_ba_grid_multihost(
 
     Identical math to ``sharded_grid.solve_ba_grid_sharded`` (to which this
     delegates) — the step's cross-point reductions psum over the
-    ("host", "chip") axis PAIR, so the camera system reduces over ICI
-    within a host and DCN across hosts. Inherits the blocked driver's
+    ("host", "chip") axis PAIR, so the camera system reduces within a host
+    and then across hosts. Inherits the blocked driver's
     operational guarantees: ``options.max_seconds`` (``src/sfm.cc:71``),
     per-block checkpointing (process 0 writes), per-block logging.
     """

@@ -3,7 +3,8 @@
 The reference has no distributed layer at all (SURVEY.md section 2.5 — its
 only parallelism is Ceres' thread pool, ``src/sfm.cc:70``); this module is
 the new capability required by the north star (BASELINE.json): scale the
-solve across a TPU slice with JAX collectives over ICI/DCN.
+solve across the devices of a mesh with JAX collectives (on GPUs XLA hands
+them to NCCL, over NVLink within a host).
 
 Decomposition (the natural one for block-sparse BA):
 
@@ -18,7 +19,7 @@ Decomposition (the natural one for block-sparse BA):
   * LM trust-region scalars (cost, rho, radius) are derived from psum-reduced
     quantities, so control flow stays replicated and the whole LM loop runs
     inside one ``shard_map`` + ``lax.while_loop`` computation — no host
-    round-trips, collectives ride ICI.
+    round-trips between iterations.
 
 Single-chip semantics are preserved exactly: a sharded solve on N devices
 produces the same iterates as ``solver.ba.solve_ba`` up to float re-association
@@ -45,7 +46,7 @@ from deeparc_tpu.residuals.reprojection import (
 )
 from deeparc_tpu.scene import BAParams, Scene, SceneIndex
 from deeparc_tpu.solver import trust_region as tr_mod
-from deeparc_tpu.solver.linalg import masked_spd_solve
+from deeparc_tpu.solver.linalg import HIGHEST, masked_spd_solve
 from deeparc_tpu.solver.schur import (
     sys_r,
     _augmented_point_blocks,
@@ -85,6 +86,9 @@ class ShardedScene(NamedTuple):
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "data") -> Mesh:
+    """Flat 1-D mesh over the first ``n_devices`` devices (all by
+    default). Every card of a host reaches every other at the same rate,
+    so the mesh follows the algorithm alone."""
     devices = jax.devices()
     if n_devices is not None:
         devices = devices[:n_devices]
@@ -258,11 +262,13 @@ def solve_ba_sharded(
                 jax.lax.pmax(jnp.max(jnp.abs(sys.g_p)), axis),
             )
             step_norm = jnp.sqrt(
-                jax.lax.psum(jnp.vdot(dp, dp), axis) + jnp.vdot(dc, dc)
+                jax.lax.psum(jnp.vdot(dp, dp, precision=HIGHEST), axis)
+                + jnp.vdot(dc, dc, precision=HIGHEST)
             )
             x_norm = jnp.sqrt(
-                jax.lax.psum(jnp.vdot(points_, points_), axis)
-                + jnp.vdot(cam_vec, cam_vec)
+                jax.lax.psum(jnp.vdot(points_, points_,
+                                      precision=HIGHEST), axis)
+                + jnp.vdot(cam_vec, cam_vec, precision=HIGHEST)
             )
             cost_change = cost - new_cost
             ftol = accept & (

@@ -9,8 +9,8 @@ camera system crosses the interconnect:
     over the ``data`` mesh axis — every per-point quantity (H_pp, g_p, the
     E coupling rows, back-substitution) is shard-local, zero communication;
   * the reduced camera pieces (g_c (C,), H_cc (C,C), the Schur correction
-    E^T B^-1 E (C,C) and rhs (C,)) are ``psum``-ed over ICI/DCN — a few
-    hundred KB per LM iteration regardless of problem size;
+    E^T B^-1 E (C,C) and rhs (C,)) are ``psum``-ed across the devices — a
+    few hundred KB per LM iteration regardless of problem size;
   * LM trust-region control flow is replicated (cost/rho/radius derive from
     psum-reduced scalars), so the whole solve runs inside ONE
     ``shard_map`` + ``lax.while_loop`` computation with no host round-trips.

@@ -143,7 +143,6 @@ def solve_ba_tiles_sharded(
     resume: bool = False,
     logger=None,
     impl: str = "xla",
-    sweep_dtype=None,
 ):
     """Full tile-engine LM solve SPMD over the mesh.
 
@@ -180,7 +179,7 @@ def solve_ba_tiles_sharded(
         params_t, tiles, point_free_t, n_shards, chunk_obs)
 
     step = make_tile_step(options, params_p, chunk_obs, axis=axis,
-                          impl=impl, sweep_dtype=sweep_dtype)
+                          impl=impl)
     spec = P(axis)
 
     buckets_in = tuple(

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from deeparc_tpu.geometry.rotation import (
@@ -38,8 +39,10 @@ def relative_pose(rot_i, trans_i, rot_j, trans_j):
     """T_ij = T_i o T_j^-1 as (angle-axis, translation); batched."""
     R_i = angle_axis_to_matrix(rot_i)
     R_j = angle_axis_to_matrix(rot_j)
-    R_rel = jnp.einsum("...ab,...cb->...ac", R_i, R_j)  # R_i R_j^T
-    t_rel = trans_i - jnp.einsum("...ab,...b->...a", R_rel, trans_j)
+    R_rel = jnp.einsum("...ab,...cb->...ac", R_i, R_j,  # R_i R_j^T
+                       precision=jax.lax.Precision.HIGHEST)
+    t_rel = trans_i - jnp.einsum("...ab,...b->...a", R_rel, trans_j,
+                                 precision=jax.lax.Precision.HIGHEST)
     return matrix_to_angle_axis(R_rel), t_rel
 
 
@@ -52,10 +55,13 @@ def pose_graph_residuals(
     i, j = graph.edges[:, 0], graph.edges[:, 1]
     R_i = angle_axis_to_matrix(rot[i])
     R_j = angle_axis_to_matrix(rot[j])
-    R_rel = jnp.einsum("lab,lcb->lac", R_i, R_j)
-    t_rel = trans[i] - jnp.einsum("lab,lb->la", R_rel, trans[j])
+    R_rel = jnp.einsum("lab,lcb->lac", R_i, R_j,
+                       precision=jax.lax.Precision.HIGHEST)
+    t_rel = trans[i] - jnp.einsum("lab,lb->la", R_rel, trans[j],
+                                  precision=jax.lax.Precision.HIGHEST)
     R_meas = angle_axis_to_matrix(graph.meas_rot)
-    R_err = jnp.einsum("lba,lbc->lac", R_meas, R_rel)   # R_meas^T R_rel
+    R_err = jnp.einsum("lba,lbc->lac", R_meas, R_rel,  # R_meas^T R_rel
+                       precision=jax.lax.Precision.HIGHEST)
     r_rot = matrix_to_angle_axis(R_err) * graph.weight_rot
     r_t = (t_rel - graph.meas_trans) * graph.weight_trans
     return jnp.concatenate([r_rot.reshape(-1), r_t.reshape(-1)])

@@ -1,6 +1,6 @@
 """Batched reprojection residuals and Jacobian blocks over the flat scene.
 
-TPU-native replacement for Ceres' forward-mode autodiff through the residual
+Batched JAX replacement for Ceres' forward-mode autodiff through the residual
 functor (``DynamicAutoDiffCostFunction`` over
 ``src/snavely_reprojection_error.hh:94-118``; SURVEY.md section 2.2): one
 ``vmap(jacfwd(...))`` over all observations produces the block-sparse
@@ -117,9 +117,8 @@ def jacobian_blocks_flat(params: BAParams, index: SceneIndex,
     """Residuals + Jacobian blocks in the FLAT rank-2 layout.
 
     Same math as :func:`jacobian_blocks`, but every per-observation array
-    stays rank-2 with M leading (TPU HBM tiles the trailing two dims to
-    (8, 128), so rank-3 (M, 2, k) blocks pad ~28x and OOM flagship-size
-    problems — solver/schur.py consumes this layout). Evaluation is
+    stays rank-2 with M leading (one packed row per observation, no tiny
+    trailing dims — solver/schur.py consumes this layout). Evaluation is
     chunked so the gathered parameter slices never materialize at full M.
     """
     M = index.obs_point.shape[0]

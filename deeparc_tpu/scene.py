@@ -1,8 +1,8 @@
-"""Flat-array scene representation — the TPU replacement for the pointer graph.
+"""Flat-array scene representation — the array replacement for the pointer graph.
 
 The reference wires observations to parameters through a heap graph
 (``ParameterBlock`` holding pointers into ``Intrinsic``/``Extrinsic``/
-``Point3d`` storage, ``src/ParameterBlock.hh:68-94``). On TPU that becomes
+``Point3d`` storage, ``src/ParameterBlock.hh:68-94``). Here that becomes
 indexed flat arrays (SURVEY.md section 7 design stance):
 
   * parameters: a :class:`BAParams` pytree of (N,3)/(E+1,3)/(K,2) tables;

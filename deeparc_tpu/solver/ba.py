@@ -32,6 +32,7 @@ from deeparc_tpu.residuals.reprojection import (
 )
 from deeparc_tpu.scene import BAParams, SceneIndex
 from deeparc_tpu.solver import trust_region as tr_mod
+from deeparc_tpu.solver.linalg import HIGHEST
 from deeparc_tpu.solver.loss import rho as loss_rho, weight as loss_weight
 from deeparc_tpu.solver.schur import (
     build_system, j_times, solve_schur, sys_r,
@@ -130,10 +131,12 @@ def make_step_pure(options: SolverOptions):
         grad_max = jnp.maximum(
             jnp.max(jnp.abs(sys.g_c)), jnp.max(jnp.abs(sys.g_p))
         )
-        step_norm = jnp.sqrt(jnp.vdot(dp, dp) + jnp.vdot(dc, dc))
+        step_norm = jnp.sqrt(jnp.vdot(dp, dp, precision=HIGHEST)
+                             + jnp.vdot(dc, dc, precision=HIGHEST))
         x_norm = jnp.sqrt(
-            jnp.vdot(params.points, params.points)
-            + jnp.vdot(flatten_camera(params), flatten_camera(params))
+            jnp.vdot(params.points, params.points, precision=HIGHEST)
+            + jnp.vdot(flatten_camera(params), flatten_camera(params),
+                       precision=HIGHEST)
         )
         cost_change = state.cost - new_cost
         ftol = accept & (

@@ -1,9 +1,9 @@
 """Small batched linear algebra: 3x3 block solves, masked Cholesky, PCG.
 
-These are the TPU-native primitives behind the Schur elimination (SURVEY.md
-section 2.2, DENSE_SCHUR row): closed-form batched 3x3 inverses for the
-point-block eliminations (adjugate formula — pure VPU arithmetic, no LAPACK
-dispatch per block) and a matrix-free preconditioned conjugate gradient for
+These are the primitives behind the Schur elimination (SURVEY.md section
+2.2, DENSE_SCHUR row): closed-form batched 3x3 inverses for the point-block
+eliminations (adjugate formula — elementwise arithmetic, no LAPACK dispatch
+per block) and a matrix-free preconditioned conjugate gradient for
 the reduced camera system at scale.
 """
 
@@ -13,6 +13,11 @@ from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+# Every float32 product in the solver asks for full float32 precision: on a
+# GPU a float32 matmul may otherwise run in TF32 (about three decimal
+# digits), which rounds exact one-hot selections and Schur complements.
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def inv3x3(A: jnp.ndarray) -> jnp.ndarray:
@@ -44,7 +49,7 @@ def inv3x3(A: jnp.ndarray) -> jnp.ndarray:
 
 def solve3x3(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched solve A x = b for (..., 3, 3) and (..., 3)."""
-    return jnp.einsum("...ij,...j->...i", inv3x3(A), b)
+    return jnp.einsum("...ij,...j->...i", inv3x3(A), b, precision=HIGHEST)
 
 
 def masked_spd_solve(
@@ -93,21 +98,22 @@ def pcg(
     r0 = b
     z0 = precond(r0)
     p0 = z0
-    rz0 = jnp.vdot(r0, z0)
+    rz0 = jnp.vdot(r0, z0, precision=HIGHEST)
 
     def cond(state):
         _, r, _, _, rz, k = state
-        return (jnp.vdot(r, r) > atol2) & (k < max_iterations)
+        return (jnp.vdot(r, r,
+                         precision=HIGHEST) > atol2) & (k < max_iterations)
 
     def body(state):
         x, r, z, p, rz, k = state
         Ap = matvec(p)
-        denom = jnp.vdot(p, Ap)
+        denom = jnp.vdot(p, Ap, precision=HIGHEST)
         alpha = jnp.where(denom > 0, rz / denom, 0.0)
         x = x + alpha * p
         r = r - alpha * Ap
         z = precond(r)
-        rz_new = jnp.vdot(r, z)
+        rz_new = jnp.vdot(r, z, precision=HIGHEST)
         beta = jnp.where(rz > 0, rz_new / rz, 0.0)
         p = z + beta * p
         return (x, r, z, p, rz_new, k + 1)

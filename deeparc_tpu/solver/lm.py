@@ -23,7 +23,7 @@ import jax.numpy as jnp
 
 from deeparc_tpu.config import SolverOptions
 from deeparc_tpu.solver import trust_region as tr_mod
-from deeparc_tpu.solver.linalg import masked_spd_solve
+from deeparc_tpu.solver.linalg import HIGHEST, masked_spd_solve
 
 
 class LMResult(NamedTuple):
@@ -48,7 +48,7 @@ def levenberg_marquardt(
 
     def cost_of(x):
         r = residual_fn(x, *aux)
-        return 0.5 * jnp.vdot(r, r)
+        return 0.5 * jnp.vdot(r, r, precision=HIGHEST)
 
     def lin(x):
         r = residual_fn(x, *aux)
@@ -69,14 +69,14 @@ def levenberg_marquardt(
 
     def body(s: State):
         r, J = lin(s.x)
-        g = J.T @ r
-        jtj = J.T @ J
+        g = jnp.dot(J.T, r, precision=HIGHEST)
+        jtj = jnp.dot(J.T, J, precision=HIGHEST)
         d2 = tr_mod.lm_diagonal(
             jnp.diagonal(jtj), options.min_lm_diagonal, options.max_lm_diagonal
         )
         H = jtj + jnp.diag(d2) / s.tr.radius
         dx = masked_spd_solve(H, -g, free_mask)
-        j_dx = J @ dx
+        j_dx = jnp.dot(J, dx, precision=HIGHEST)
         mcc = tr_mod.model_cost_change(j_dx, r)
 
         x_new = s.x + dx

@@ -1,22 +1,27 @@
 """Plane-form (structure-of-arrays) linearization for the dense-grid engine.
 
 The einsum formulation in :mod:`rig_grid` carries Jacobian blocks as
-``(N, T, 2, 3)`` tensors. On TPU those trailing (2, 3) dims land in the
-(sublane, lane) tile — padded to (8, 128) — so every elementwise op and
-reduction runs at ~1/100 of the VPU/HBM roofline (measured: 729 ms of a
-762 ms LM step at 100k points went to assembly).
+``(N, T, 2, 3)`` tensors with tiny trailing dims. This module computes the
+identical quantities with every intermediate a ``(N, T)`` *plane*
+(points x cells) and the small 2x3 / 3x3 structure unrolled into
+Python-level lists of planes:
 
-This module computes the identical quantities with every intermediate a
-``(N, T)`` *plane* (points x cells — both dims tile-friendly) and the small
-2x3 / 3x3 structure unrolled into Python-level lists of planes:
-
-  * projection/residual chain: pure VPU arithmetic on (N, T) planes;
+  * projection/residual chain: elementwise arithmetic on (N, T) planes;
   * the 2x18 camera Jacobian: 36 planes, stacked once into a
     ``(2N, 18, T)`` tensor so the per-slot Gram matrix H_cc and gradient are
-    single batched MXU contractions;
+    single batched contractions;
   * the point-camera coupling E: per-column (N, T) @ (T, R) one-hot
-    matmuls (MXU, contraction over the cell axis);
-  * per-point H_pp / g_p: lane-axis reductions of (N, T) planes.
+    matmuls (contraction over the cell axis);
+  * per-point H_pp / g_p: reductions of (N, T) planes over cells.
+
+Every product runs at ``Precision.HIGHEST``: on a GPU a float32 product
+may otherwise run in TF32 (about three decimal digits), which would round
+the one-hot selections and the Gram sums.
+
+:func:`linearize_banded` / :func:`cost_banded` are the same math over the
+live-band layout of :mod:`rig_band` (each point tile pays only its band of
+cells) — the plain-XLA banded path and the reference for the fused kernel
+in ``kernels/rig_pallas.py``.
 
 Derivation shortcuts (vs the chain in ``rig_grid.grid_jacobians``, itself
 the closed form of ``src/snavely_reprojection_error.hh:38-118``):
@@ -33,8 +38,12 @@ implementation in tests/test_rig_grid.py.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import jax
 import jax.numpy as jnp
 
+from deeparc_tpu.solver.linalg import HIGHEST
 from deeparc_tpu.solver.loss import rho as loss_rho, weight as loss_weight
 
 
@@ -83,13 +92,15 @@ def cost_planes(points, sp, xy0, xy1, mask, loss="trivial", loss_scale=0.5):
 def linearize_planes(
     points, sp, grid, xy0, xy1, mask,
     free_outer, free_inner, free_intr, point_free,
-    loss="trivial", loss_scale=0.5,
+    loss="trivial", loss_scale=0.5, ext_only=False,
 ):
     """One chunk's normal-equation pieces, all-plane arithmetic.
 
     Returns (cost, g_p (N,3), hpp (N,3,3), g_slots (T,18),
     hcc_slots (T,18,18), E (N,3,C)) matching the einsum implementation in
-    ``rig_grid.assemble_grid_system`` bit-for-tolerance.
+    ``rig_grid.assemble_grid_system`` bit-for-tolerance. ``ext_only=True``
+    omits E's intrinsic columns (E is (N, 3, 6R), the first 6R flat
+    columns) for solves whose intrinsics are frozen.
     """
     c = _project_planes(points, sp, xy0, xy1, mask)
     X, p2 = c["X"], c["p2"]
@@ -184,12 +195,14 @@ def linearize_planes(
         [jnp.stack(P[k], axis=1) for k in range(2)]
     ).reshape((-1,) + (18, mask.shape[1]))                  # (2N, 18, T)
     rbig = jnp.concatenate([r0, r1])                        # (2N, T)
-    g_slots = jnp.einsum("xit,xt->ti", Jbig, rbig)          # (T, 18)
-    hcc_slots = jnp.einsum("xit,xjt->tij", Jbig, Jbig)      # (T, 18, 18)
+    g_slots = jnp.einsum("xit,xt->ti", Jbig, rbig,
+                         precision=HIGHEST)                 # (T, 18)
+    hcc_slots = jnp.einsum("xit,xjt->tij", Jbig, Jbig,
+                           precision=HIGHEST)               # (T, 18, 18)
 
-    # E: per-column one-hot matmuls over the cell axis (MXU)
+    # E: per-column one-hot matmuls over the cell axis
     groups = ((0, grid.onehot_outer, grid.onehot_inner),
-              (12, grid.onehot_intr, None))
+              (12, grid.onehot_intr, None))[:1 if ext_only else 2]
     e_rows = []
     for i in range(3):
         segs = []
@@ -197,14 +210,168 @@ def linearize_planes(
             cols = []
             for j in range(6):
                 W = jx_f[0][i] * P[0][off + j] + jx_f[1][i] * P[1][off + j]
-                col = W @ oh_a
+                col = jnp.dot(W, oh_a, precision=HIGHEST)
                 if oh_b is not None:
                     W2 = (jx_f[0][i] * P[0][off + 6 + j]
                           + jx_f[1][i] * P[1][off + 6 + j])
-                    col = col + W2 @ oh_b
+                    col = col + jnp.dot(W2, oh_b, precision=HIGHEST)
                 cols.append(col)
             seg = jnp.stack(cols, axis=-1)                  # (N, R, 6)
             segs.append(seg.reshape(seg.shape[0], -1))      # (N, 6R)
         e_rows.append(jnp.concatenate(segs, axis=-1))
     E = jnp.stack(e_rows, axis=1)                           # (N, 3, C)
     return cost, g_p, hpp, g_slots, hcc_slots, E
+
+
+# ---------------------------------------------------------------------------
+# Banded (live-window) layout
+# ---------------------------------------------------------------------------
+# After solver/rig_band.band_grid renumbers cells and sorts points, each tile
+# of ``block_np`` points sees only a cyclic window of ``w`` cells starting at
+# 8 * starts[tile]; ``w_band`` is one width or width-bucket groups
+# ((w, tile_lo, tile_hi), ...). ``pxm`` holds the pre-gathered (3, w, n)
+# [xy0; xy1; mask] stack of each group (rig_band.gather_banded_planes).
+
+
+class _BandCells(NamedTuple):
+    """Per-tile band rows of the per-cell grid structure that
+    :func:`linearize_planes` reads (duck-typed to GridIndex)."""
+
+    focal_shared: jnp.ndarray
+    dist_m1: jnp.ndarray
+    dist_m2: jnp.ndarray
+    onehot_outer: jnp.ndarray
+    onehot_inner: jnp.ndarray
+    onehot_intr: jnp.ndarray
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _band_layout(points, grid, starts, w_band, block_np, pxm):
+    """Shared banded prologue: (groups, pxm tuple, t_pad, n_pad, padded
+    points (n_pad, 3))."""
+    from deeparc_tpu.solver.rig_band import (
+        band_groups, banded_planes, gather_banded_planes,
+    )
+
+    N, T = grid.xy0.shape
+    t_pad = _round_up(T, 8)
+    if isinstance(w_band, tuple):
+        n_pad = w_band[-1][2] * block_np
+    else:
+        first = pxm[0] if isinstance(pxm, tuple) else pxm
+        n_pad = _round_up(N, block_np) if pxm is None else first.shape[-1]
+    groups = band_groups(w_band, n_pad, block_np)
+    if starts.shape[0] != n_pad // block_np:
+        raise ValueError(
+            f"band start table has {starts.shape[0]} tiles, the layout "
+            f"{n_pad // block_np} (built for another block_np?)")
+    if pxm is None:
+        pxm_ext = banded_planes(grid, n_pad, max(w for w, _, _ in groups))
+        pxm = tuple(gather_banded_planes(pxm_ext, starts, w, block_np, lo, hi)
+                    for w, lo, hi in groups)
+    pxms = pxm if isinstance(pxm, tuple) else (pxm,)
+    pts = jnp.zeros((n_pad, 3), points.dtype).at[:N].set(points)
+    pts = pts.at[N:, 2].set(1.0)             # z-safe padding points
+    return groups, pxms, t_pad, n_pad, pts
+
+
+def _band_cells(starts, w, lo, hi, t_pad, T):
+    """(tiles, w) band rows modulo t_pad, and their cell ids clipped to the
+    real cells (rows >= T are padding cells; their mask is zero)."""
+    rows = (starts[lo:hi, None] * 8
+            + jnp.arange(w, dtype=starts.dtype)) % t_pad
+    return rows, jnp.minimum(rows, T - 1)
+
+
+def _tiles_planes(pxm_g, bn):
+    """(3, w, tiles * bn) band stack -> three (tiles, bn, w) planes."""
+    _, w, n = pxm_g.shape
+    stack = jnp.moveaxis(pxm_g.reshape(3, w, n // bn, bn), 2, 0)
+    planes = jnp.swapaxes(stack, -1, -2)     # (tiles, 3, bn, w)
+    return planes[:, 0], planes[:, 1], planes[:, 2]
+
+
+def linearize_banded(
+    points, point_free, sp, grid, free_outer, free_inner, free_intr,
+    starts, w_band, loss="trivial", loss_scale=0.5, block_np=256,
+    ext_only=False, pxm=None,
+):
+    """:func:`linearize_planes` over each point tile's live band.
+
+    ``vmap`` over tiles of the plane-form linearization with the tile's
+    gathered slot tables; slot sums are scatter-added back by band row.
+    Returns (cost, g_p (N,3), hpp (N,3,3), g_slots (T,18),
+    hcc_slots (T,18,18), E (N,3,C)) with E in flat camera order (the first
+    6R columns only when ``ext_only``)."""
+    N, T = grid.xy0.shape
+    dtype = points.dtype
+    groups, pxms, t_pad, n_pad, pts = _band_layout(
+        points, grid, starts, w_band, block_np, pxm)
+    pf = jnp.zeros((n_pad, 3), dtype).at[:N].set(point_free.astype(dtype))
+    per_cell = (free_outer, free_inner, free_intr)
+
+    cost = jnp.zeros((), dtype)
+    g_slots = jnp.zeros((t_pad, 18), dtype)
+    hcc_slots = jnp.zeros((t_pad, 18, 18), dtype)
+    gp_parts, hpp_parts, e_parts = [], [], []
+    for (w, lo, hi), pxm_g in zip(groups, pxms):
+        if hi == lo:
+            continue
+        rows, cells = _band_cells(starts, w, lo, hi, t_pad, T)
+        sp_t = jax.tree.map(lambda a: a[cells], sp)
+        g_t = _BandCells(
+            grid.focal_shared[cells], grid.dist_m1[cells],
+            grid.dist_m2[cells], grid.onehot_outer[cells],
+            grid.onehot_inner[cells], grid.onehot_intr[cells])
+        fo, fi, fk = (f[cells] for f in per_cell)
+        xy0, xy1, msk = _tiles_planes(pxm_g, block_np)
+        tile = lambda a: a[lo * block_np: hi * block_np].reshape(
+            hi - lo, block_np, 3)
+
+        def one_tile(p, pf_t, x0, x1, m, s, g, a, b, c):
+            return linearize_planes(p, s, g, x0, x1, m, a, b, c, pf_t,
+                                    loss=loss, loss_scale=loss_scale,
+                                    ext_only=ext_only)
+
+        c_t, gp_t, hpp_t, gs_t, hs_t, e_t = jax.vmap(one_tile)(
+            tile(pts), tile(pf), xy0, xy1, msk, sp_t, g_t, fo, fi, fk)
+        cost = cost + jnp.sum(c_t)
+        flat_rows = rows.reshape(-1)
+        g_slots = g_slots.at[flat_rows].add(gs_t.reshape(-1, 18))
+        hcc_slots = hcc_slots.at[flat_rows].add(hs_t.reshape(-1, 18, 18))
+        gp_parts.append(gp_t.reshape(-1, 3))
+        hpp_parts.append(hpp_t.reshape(-1, 3, 3))
+        e_parts.append(e_t.reshape((-1,) + e_t.shape[2:]))
+    g_p = jnp.concatenate(gp_parts)[:N]
+    hpp = jnp.concatenate(hpp_parts)[:N]
+    E = jnp.concatenate(e_parts)[:N]
+    return cost, g_p, hpp, g_slots[:T], hcc_slots[:T], E
+
+
+def cost_banded(points, sp, grid, starts, w_band, loss="trivial",
+                loss_scale=0.5, block_np=1024, pxm=None):
+    """Banded robustified half-SSE (the trial-cost pass over live bands):
+    :func:`cost_planes` per point tile over its band. ``starts``/``pxm``
+    must be the cost-pass table and stacks built for THIS ``block_np``."""
+    N, T = grid.xy0.shape
+    dtype = points.dtype
+    groups, pxms, t_pad, n_pad, pts = _band_layout(
+        points, grid, starts, w_band, block_np, pxm)
+    total = jnp.zeros((), dtype)
+    for (w, lo, hi), pxm_g in zip(groups, pxms):
+        if hi == lo:
+            continue
+        _, cells = _band_cells(starts, w, lo, hi, t_pad, T)
+        sp_t = jax.tree.map(lambda a: a[cells], sp)
+        xy0, xy1, msk = _tiles_planes(pxm_g, block_np)
+        tile_pts = pts[lo * block_np: hi * block_np].reshape(
+            hi - lo, block_np, 3)
+        costs = jax.vmap(
+            lambda p, s, x0, x1, m: cost_planes(
+                p, s, x0, x1, m, loss=loss, loss_scale=loss_scale)
+        )(tile_pts, sp_t, xy0, xy1, msk)
+        total = total + jnp.sum(costs)
+    return total

@@ -1,6 +1,6 @@
 """Schur-complement elimination of points: the reduced camera system.
 
-TPU-native replacement for Ceres' DENSE_SCHUR linear solver (SURVEY.md
+Batched replacement for Ceres' DENSE_SCHUR linear solver (SURVEY.md
 section 2.2; selected by the reference at ``src/sfm.cc:67,95``). The normal
 equations of one LM iteration,
 
@@ -19,11 +19,8 @@ batched products over observations plus segment-sums, which is exactly the
 shape XLA tiles onto the MXU/VPU). Back-substitution then recovers
 dp = -B^-1 (g_p + E dc) pointwise.
 
-MEMORY LAYOUT (TPU tiling): every per-observation array here is RANK-2 with
-M leading. TPU HBM buffers tile the last two dims to (8, 128), so a rank-3
-(M, 2, 18) block pads ~28x and a flagship-size problem OOMs the 16 GB chip
-(the round-3 indexed-engine limitation). All residual/Jacobian blocks are
-therefore PACKED into one (M, 44) buffer — columns [0:2) residual,
+MEMORY LAYOUT: every per-observation array here is RANK-2 with M leading:
+all residual/Jacobian blocks are PACKED into one (M, 44) buffer — columns [0:2) residual,
 [2:8) d res/d point row-major (r*3+i), [8:44) d res/d camera (r*18+c) —
 one tile-padded allocation total, and every contraction is explicit slice
 arithmetic on (M, k<=36) operands that XLA fuses without materializing
@@ -31,9 +28,8 @@ rank-3 shapes.
 
 Camera-side accumulations exploit the column structure (18 per-observation
 columns = 3 groups of 6 keyed by outer-extrinsic / inner-extrinsic /
-intrinsic id) and use per-group segment sums instead of generic scatter-add:
-on TPU an arbitrary-index scatter is both slow to compile and slow to run,
-while segmented sums lower well.
+intrinsic id) and use per-group segment sums instead of generic
+scatter-add.
 
 All operators respect freeze masks (gauge fixing / frozen intrinsics /
 freeze-camera pre-solve, ``src/sfm.cc:50-63``): frozen columns are zeroed in
@@ -49,7 +45,7 @@ import jax
 import jax.numpy as jnp
 
 from deeparc_tpu.config import SolverOptions
-from deeparc_tpu.solver.linalg import inv3x3, masked_spd_solve, pcg
+from deeparc_tpu.solver.linalg import HIGHEST, inv3x3, masked_spd_solve, pcg
 from deeparc_tpu.solver.trust_region import lm_diagonal
 
 
@@ -238,7 +234,7 @@ def schur_matvec(
     hcc_v = cam_accumulate(sys, _jc_r(jc, t))
     ev = jax.ops.segment_sum(
         _jp_r(jp, t), sys.obs_point, num_segments=n_points)
-    w = jnp.einsum("pij,pj->pi", binv, ev)
+    w = jnp.einsum("pij,pj->pi", binv, ev, precision=HIGHEST)
     t2 = _jp_dot(jp, w[sys.obs_point])
     corr = cam_accumulate(sys, _jc_r(jc, t2))
     s = hcc_v + cam_aug * v - corr
@@ -290,7 +286,7 @@ def _dense_E(sys: SchurSystem) -> jnp.ndarray:
 def reduced_rhs(sys: SchurSystem, binv: jnp.ndarray) -> jnp.ndarray:
     """-g_c + E^T B~^-1 g_p (local part; psum across shards if distributed)."""
     jp, jc = sys_jp(sys), sys_jc(sys)
-    w_g = jnp.einsum("pij,pj->pi", binv, sys.g_p)
+    w_g = jnp.einsum("pij,pj->pi", binv, sys.g_p, precision=HIGHEST)
     t_g = _jp_dot(jp, w_g[sys.obs_point])
     return -sys.g_c + cam_accumulate(sys, _jc_r(jc, t_g))
 
@@ -303,7 +299,7 @@ def back_substitute(
     t_dc = _jc_dot(jc, dc[sys_cols(sys)])
     e_dc = jax.ops.segment_sum(
         _jp_r(jp, t_dc), sys.obs_point, num_segments=sys.g_p.shape[0])
-    dp = -jnp.einsum("pij,pj->pi", binv, sys.g_p + e_dc)
+    dp = -jnp.einsum("pij,pj->pi", binv, sys.g_p + e_dc, precision=HIGHEST)
     return dp * sys.point_free
 
 
@@ -333,7 +329,8 @@ def hcc_dense(sys: SchurSystem) -> jnp.ndarray:
 def dense_S(sys: SchurSystem, binv: jnp.ndarray) -> jnp.ndarray:
     """Hcc - E^T B~^-1 E materialized (C, C), WITHOUT the LM diagonal."""
     E = _dense_E(sys)
-    return hcc_dense(sys) - jnp.einsum("pic,pij,pjd->cd", E, binv, E)
+    return hcc_dense(sys) - jnp.einsum("pic,pij,pjd->cd", E, binv, E,
+                                       precision=HIGHEST)
 
 
 def block_jacobi_preconditioner(sys: SchurSystem, cam_aug: jnp.ndarray):
@@ -362,7 +359,8 @@ def block_jacobi_preconditioner(sys: SchurSystem, cam_aug: jnp.ndarray):
 
     def precond(v):
         vb = v.reshape(R + K, 6)
-        return jnp.einsum("bij,bj->bi", inv_blocks, vb).reshape(-1)
+        return jnp.einsum("bij,bj->bi", inv_blocks, vb,
+                          precision=HIGHEST).reshape(-1)
 
     return precond
 

@@ -1,31 +1,25 @@
-"""Tile engine: TPU-fast bundle adjustment for ARBITRARY camera graphs.
+"""Tile engine: bundle adjustment for ARBITRARY camera graphs.
 
 This is the at-scale path for problems WITHOUT rig structure (BAL-style
 scenes, the reference's non-shared mode: ``src/ParameterBlock.hh:52-55``
 column semantics + ``src/sfm.cc:67`` DENSE_SCHUR over an arbitrary
 camera-point bipartite graph). The dense-grid engine (rig_grid.py) requires
 ``share_extrinsic``; the observation-list engine (ba.py) is correct for any
-graph but leans on XLA gathers / segment-sums which measure far off roofline
-at BA sizes. Measured on the v5e (scripts/microbench_ops.py, M = 4M rows):
-
-    segment-sum, sorted ids, (M,16)->(400k,16):   434 ms   <- ba.py hot path
-    row gather (M,16) from a small table:          20 ms
-    one-hot matmul bin (M,16)->(2048,16), f32:     24 ms
-    dense row-bucket reduce (M/W, W, 16)->(.,16):  13 ms
-
-so the tile engine is laid out to use ONLY the fast ops:
+graph but spends its time in gathers and segment-sums over the observation
+list. The tile engine is laid out around dense reductions instead:
 
   * **Point-major dense rows.** The observations of one point form one
     padded row of W slots (W = next power of two >= track length; points
     are bucketed by W). Every per-point reduction (g_p, H_pp, the
-    E-coupling products, back-substitution) is a dense within-row reduce —
-    the 434 ms sorted segment-sum is GONE. Points are permuted so buckets
-    are contiguous slices: the point side needs zero gathers.
+    E-coupling products, back-substitution) is a dense within-row reduce,
+    not a segment-sum. Points are permuted so buckets are contiguous
+    slices: the point side needs zero gathers.
   * **Cell table.** The distinct (outer-extrinsic, inner-extrinsic,
     intrinsic) triples form V "cells" (== physical cameras for BAL). All
     per-slot camera parameters are packed into ONE (V, D) table; per-chunk
     lookups AND camera-side binning share a single exact one-hot matmul
-    (a 0/1 f32 one-hot selects rows exactly; the MXU does the rest).
+    (a 0/1 one-hot at ``Precision.HIGHEST`` selects rows exactly; in TF32
+    it would round them).
   * **Cell-space reduced camera system.** H_cc is kept as per-cell 18x18
     Grams (V, 18, 18); H_cc v, the Schur correction E^T B^-1 E v, the
     block-Jacobi preconditioner, and gradient binning all work in cell
@@ -55,7 +49,7 @@ import numpy as np
 from deeparc_tpu.config import SolverOptions
 from deeparc_tpu.scene import BAParams, Scene
 from deeparc_tpu.solver import trust_region as tr_mod
-from deeparc_tpu.solver.linalg import inv3x3, pcg
+from deeparc_tpu.solver.linalg import HIGHEST, inv3x3, pcg
 from deeparc_tpu.solver.loss import rho as loss_rho, weight as loss_weight
 from deeparc_tpu.solver.trust_region import lm_diagonal
 
@@ -92,7 +86,7 @@ class TileBucket(NamedTuple):
     that each compiled chunk of B rows touches only V_local << V distinct
     cells, every cell-space lookup and binning in the sweeps becomes a
     SMALL (B*W, V_local) one-hot matmul against a per-chunk local table —
-    MXU-friendly tiles instead of O(V)-per-slot work — plus a tiny
+    O(V_local) instead of O(V) work per slot — plus a tiny
     per-chunk (V_local, .) gather/scatter against the global table. Real
     BAL camera graphs have strong co-visibility locality; without it
     (``loc == ()``) the engines fall back to the global-table path.
@@ -601,8 +595,10 @@ def _project_chunk(pts, c, xy0, xy1, mask):
     ``rig_grid.grid_jacobians`` — the closed form of
     ``src/snavely_reprojection_error.hh:38-118`` — with per-(row, slot)
     camera quantities instead of per-column)."""
-    p2 = jnp.einsum("bwij,bj->bwi", c["R_i"], pts) + c["t_i"]
-    p3 = jnp.einsum("bwij,bwj->bwi", c["R_o"], p2) + c["t_o"]
+    p2 = jnp.einsum("bwij,bj->bwi", c["R_i"], pts,
+                    precision=HIGHEST) + c["t_i"]
+    p3 = jnp.einsum("bwij,bwj->bwi", c["R_o"], p2,
+                    precision=HIGHEST) + c["t_o"]
     z = p3[..., 2]
     # masked slots carry the pad cell; keep z away from 0 for them
     z = jnp.where(mask > 0.5, z, 1.0)
@@ -656,22 +652,24 @@ def _linearize_chunk(pts, c, xy0, xy1, mask, point_free, loss, loss_scale):
         axis=-2,
     )                                             # (B, W, 2, 3)
     ddcoef = c["d0"] + 2.0 * c["d1"] * r2
-    dr2_dp = 2.0 * jnp.einsum("bwk,bwka->bwa", u, du_dp)
+    dr2_dp = 2.0 * jnp.einsum("bwk,bwka->bwa", u, du_dp, precision=HIGHEST)
     dres_dp = f2[..., None] * (
         dcoef[..., None, None] * du_dp
         + u[..., None] * (ddcoef[..., None] * dr2_dp)[..., None, :]
     )
     dres_dp = dres_dp * mfac[..., None, None]
 
-    j_x = jnp.einsum("nwka,nwab->nwkb", dres_dp, c["R_oi"])
+    j_x = jnp.einsum("nwka,nwab->nwkb", dres_dp, c["R_oi"], precision=HIGHEST)
     j_to = dres_dp
-    j_ti = jnp.einsum("nwka,nwab->nwkb", dres_dp, c["R_o"])
+    j_ti = jnp.einsum("nwka,nwab->nwkb", dres_dp, c["R_o"], precision=HIGHEST)
     dp3_dwo = -jnp.einsum(
-        "bwij,bwjk,bwkl->bwil", c["R_o"], _cross(pc["p2"]), c["Jr_o"])
-    j_wo = jnp.einsum("nwka,nwab->nwkb", dres_dp, dp3_dwo)
+        "bwij,bwjk,bwkl->bwil", c["R_o"], _cross(pc["p2"]), c["Jr_o"],
+            precision=HIGHEST)
+    j_wo = jnp.einsum("nwka,nwab->nwkb", dres_dp, dp3_dwo, precision=HIGHEST)
     dp3_dwi = -jnp.einsum(
-        "bwij,bjk,bwkl->bwil", c["R_oi"], _cross(pts), c["Jr_i"])
-    j_wi = jnp.einsum("nwka,nwab->nwkb", dres_dp, dp3_dwi)
+        "bwij,bjk,bwkl->bwil", c["R_oi"], _cross(pts), c["Jr_i"],
+            precision=HIGHEST)
+    j_wi = jnp.einsum("nwka,nwab->nwkb", dres_dp, dp3_dwi, precision=HIGHEST)
 
     # intrinsics: [cx, cy, f0, f1, d0, d1]
     eye2 = jnp.eye(2, dtype=r.dtype)
@@ -693,8 +691,8 @@ def _linearize_chunk(pts, c, xy0, xy1, mask, point_free, loss, loss_scale):
     j_cam = j_cam * c["free18"][:, :, None, :]
     j_x = j_x * point_free[:, None, None, :]
 
-    g_p = jnp.einsum("bwki,bwk->bi", j_x, r)
-    hpp = jnp.einsum("bwki,bwkj->bij", j_x, j_x)
+    g_p = jnp.einsum("bwki,bwk->bi", j_x, r, precision=HIGHEST)
+    hpp = jnp.einsum("bwki,bwkj->bij", j_x, j_x, precision=HIGHEST)
     return cost, r, j_x, j_cam, g_p, hpp
 
 
@@ -781,7 +779,8 @@ def _linearize_bucket_xla(pts_b, pf_b, b, packed, V, chunk_obs, loss,
         pts, pf, cell, xy0, xy1, msk = args[:6]
         oh = _onehot(cell.reshape(-1), Vl, dtype)         # (B*W, Vl)
         table = packed[args[6]] if local else packed
-        sl = jnp.dot(oh, table, preferred_element_type=dtype)
+        sl = jnp.dot(oh, table, preferred_element_type=dtype,
+                     precision=HIGHEST)
         c = _unpack(sl, B, W)
         cost, r, j_x, j_cam, g_p, hpp = _linearize_chunk(
             pts, c, xy0, xy1, msk, pf, loss, loss_scale)
@@ -791,11 +790,15 @@ def _linearize_bucket_xla(pts_b, pf_b, b, packed, V, chunk_obs, loss,
         # camera-side binning shares the chunk's one-hot; the 18x18
         # Gram is symmetric, so only its 171 upper-triangle entries are
         # binned (the matmul is the dominant linearize cost)
-        g18 = jnp.einsum("bwkc,bwk->bwc", j_cam, r).reshape(B * W, 18)
-        gc = jnp.dot(oh.T, g18, preferred_element_type=dtype)
-        h18 = _sym_pack(jnp.einsum("bwki,bwkj->bwij", j_cam, j_cam))
+        g18 = jnp.einsum("bwkc,bwk->bwc", j_cam, r,
+                         precision=HIGHEST).reshape(B * W, 18)
+        gc = jnp.dot(oh.T, g18, preferred_element_type=dtype,
+                     precision=HIGHEST)
+        h18 = _sym_pack(jnp.einsum("bwki,bwkj->bwij", j_cam, j_cam,
+                                   precision=HIGHEST))
         hc = jnp.dot(
-            oh.T, h18.reshape(B * W, 171), preferred_element_type=dtype)
+            oh.T, h18.reshape(B * W, 171), preferred_element_type=dtype,
+                precision=HIGHEST)
         return cost, r, j_x, j_cam, g_p, hpp, gc, hc
 
     map_args = [_chunks(pts_b, B), _chunks(pf_b, B), _chunks(plane, B),
@@ -882,140 +885,6 @@ def linearize_tiles(
     )
 
 
-def bucket_fused_ok(b: TileBucket) -> bool:
-    """True when this bucket carries locality blocking narrow enough for
-    the fused Pallas linearize kernel (kernels/tile_pallas.py)."""
-    from deeparc_tpu.kernels.tile_pallas import MAX_LIN_WIDTH
-
-    return bool(b.loc) and b.cell.shape[1] <= MAX_LIN_WIDTH
-
-
-def fused_linearize_ok(tiles: TileIndex) -> bool:
-    """True when EVERY bucket can run the fused Pallas linearize. The step
-    no longer requires this — :func:`linearize_tiles_mixed` dispatches per
-    bucket — but it remains the condition for the planes-only fast path."""
-    return bool(tiles.buckets) and all(
-        bucket_fused_ok(b) for b in tiles.buckets)
-
-
-def linearize_tiles_mixed(
-    points_t: jnp.ndarray,
-    packed: jnp.ndarray,
-    tiles: TileIndex,
-    point_free_t: jnp.ndarray,
-    C: int,
-    chunk_obs: int = CHUNK_OBS,
-    loss: str = "trivial",
-    loss_scale: float = 0.5,
-    interpret: bool = False,
-    plane_dtype=None,
-):
-    """PER-BUCKET fused-Pallas / XLA linearization.
-
-    Real track distributions are heavy-tailed (any length, one
-    ``ParameterBlock`` per observation — ``src/ParameterBlock.hh:30-58``),
-    so a scene yields several width buckets and one wide bucket must not
-    knock the whole scene off the fast path: buckets with narrow locality
-    blocking (:func:`bucket_fused_ok`) run the fused VMEM kernel (~20x the
-    XLA path on the v5e) and emit transposed sweep planes; the rest — wide
-    or non-loc'd buckets, typically a small observation fraction — run the
-    XLA chunk path and keep :class:`BucketBlocks`.
-
-    Returns ``(sys, planes)`` with entries aligned per bucket:
-    ``planes[i]`` is None for XLA buckets, ``sys.blocks[i]`` is None for
-    fused buckets.
-    """
-    from deeparc_tpu.kernels.tile_pallas import tile_linearize_local
-
-    V = packed.shape[0]
-    dtype = points_t.dtype
-    cols = tiles.cells.cols
-
-    cost_total = jnp.zeros((), dtype)
-    g_p_parts, hpp_parts, planes, blocks = [], [], [], []
-    g_cells = jnp.zeros((V, 18), dtype)
-    hcc_packed = jnp.zeros((V, 171), dtype)
-
-    offset = 0
-    for b in tiles.buckets:
-        Nb, W = b.cell.shape
-        pts_b = points_t[offset: offset + Nb]
-        pf_b = point_free_t[offset: offset + Nb]
-        if bucket_fused_ok(b):
-            local, chunk_cells = b.loc
-            tables = packed[chunk_cells]             # (n_chunks, Vl, 78)
-            pts_pack = jnp.concatenate(
-                [pts_b.T, pf_b.T.astype(dtype), jnp.zeros((2, Nb), dtype)],
-                axis=0)
-            cost, pout, r_t, jx_t, jcam_t, gc, hc = tile_linearize_local(
-                pts_pack, local.T, b.xy0.T, b.xy1.T, b.mask.T, tables,
-                loss=loss, loss_scale=loss_scale, interpret=interpret,
-                plane_dtype=plane_dtype)
-            g_p_parts.append(pout[0:3].T)
-            hpp_parts.append(pout[3:12].T.reshape(Nb, 3, 3))
-            flat_ids = chunk_cells.reshape(-1)
-            planes.append((local.T, jcam_t, jx_t, r_t))
-            blocks.append(None)
-        else:
-            cost, blk, gp_b, hpp_b, gc, hc, chunk_tables = (
-                _linearize_bucket_xla(pts_b, pf_b, b, packed, V, chunk_obs,
-                                      loss, loss_scale, True))
-            g_p_parts.append(gp_b)
-            hpp_parts.append(hpp_b)
-            flat_ids = (chunk_tables.reshape(-1)
-                        if chunk_tables is not None else None)
-            planes.append(None)
-            blocks.append(blk)
-        cost_total = cost_total + cost
-        if flat_ids is not None:
-            g_cells = g_cells.at[flat_ids].add(gc.reshape(-1, 18))
-            hcc_packed = hcc_packed.at[flat_ids].add(hc.reshape(-1, 171))
-        else:
-            g_cells = g_cells + jnp.sum(gc, axis=0)
-            hcc_packed = hcc_packed + jnp.sum(hc, axis=0)
-        offset += Nb
-
-    tail = points_t.shape[0] - offset
-    if tail > 0:
-        g_p_parts.append(jnp.zeros((tail, 3), dtype))
-        hpp_parts.append(jnp.zeros((tail, 3, 3), dtype))
-
-    hcc_cells = _sym_unpack(hcc_packed)
-    sys = TileSystem(
-        cost=cost_total,
-        g_p=jnp.concatenate(g_p_parts),
-        hpp=jnp.concatenate(hpp_parts),
-        g_c=cells_to_flat(g_cells, cols, C),
-        hcc_cells=hcc_cells,
-        hcc_diag=cells_to_flat(
-            jnp.diagonal(hcc_cells, axis1=-2, axis2=-1), cols, C),
-        blocks=tuple(blocks),
-    )
-    return sys, tuple(planes)
-
-
-def linearize_tiles_fused(
-    points_t: jnp.ndarray,
-    packed: jnp.ndarray,
-    tiles: TileIndex,
-    point_free_t: jnp.ndarray,
-    C: int,
-    loss: str = "trivial",
-    loss_scale: float = 0.5,
-    interpret: bool = False,
-    plane_dtype=None,
-):
-    """All-fused linearization (every bucket loc'd and narrow). Thin
-    wrapper over :func:`linearize_tiles_mixed` that strips the per-bucket
-    None blocks; requires :func:`fused_linearize_ok`."""
-    assert fused_linearize_ok(tiles)
-    sys, planes = linearize_tiles_mixed(
-        points_t, packed, tiles, point_free_t, C,
-        loss=loss, loss_scale=loss_scale, interpret=interpret,
-        plane_dtype=plane_dtype)
-    return sys._replace(blocks=()), planes
-
-
 def tile_cost(
     points_t: jnp.ndarray,
     packed: jnp.ndarray,
@@ -1038,7 +907,8 @@ def tile_cost(
             pts, cell, xy0, xy1, msk = args[:5]
             oh = _onehot(cell.reshape(-1), Vl, dtype)
             table = packed[args[5]] if local else packed
-            sl = jnp.dot(oh, table, preferred_element_type=dtype)
+            sl = jnp.dot(oh, table, preferred_element_type=dtype,
+                         precision=HIGHEST)
             c = _unpack(sl, B, W)
             pc = _project_chunk(pts, c, xy0, xy1, msk)
             s = jnp.sum(pc["r"] * pc["r"], axis=-1)
@@ -1076,7 +946,8 @@ def tile_mse_planes(
             pts, cell, xy0, xy1, msk = args[:5]
             oh = _onehot(cell.reshape(-1), Vl, dtype)
             table = packed[args[5]] if local else packed
-            sl = jnp.dot(oh, table, preferred_element_type=dtype)
+            sl = jnp.dot(oh, table, preferred_element_type=dtype,
+                         precision=HIGHEST)
             c = _unpack(sl, B, W)
             pc = _project_chunk(pts, c, xy0, xy1, msk)
             return 0.5 * jnp.sum(pc["r"] * pc["r"], axis=-1)
@@ -1119,19 +990,21 @@ def _e_sweep(
             cell, j_x, j_cam, binv_c, gp_c = args[:5]
             oh = _onehot(cell.reshape(-1), Vl, dtype)
             if rhs_mode:
-                w = jnp.einsum("bij,bj->bi", binv_c, gp_c)
+                w = jnp.einsum("bij,bj->bi", binv_c, gp_c, precision=HIGHEST)
             else:
                 v_table = v_cells[args[5]] if local else v_cells
                 vslot = jnp.dot(
-                    oh, v_table, preferred_element_type=dtype
+                    oh, v_table, preferred_element_type=dtype,
+                    precision=HIGHEST
                 ).reshape(B, W, 18)
-                t = jnp.einsum("bwkc,bwc->bwk", j_cam, vslot)
-                ev = jnp.einsum("bwki,bwk->bi", j_x, t)
-                w = jnp.einsum("bij,bj->bi", binv_c, ev)
-            t2 = jnp.einsum("bwki,bi->bwk", j_x, w)
-            u = jnp.einsum("bwkc,bwk->bwc", j_cam, t2)
+                t = jnp.einsum("bwkc,bwc->bwk", j_cam, vslot,
+                               precision=HIGHEST)
+                ev = jnp.einsum("bwki,bwk->bi", j_x, t, precision=HIGHEST)
+                w = jnp.einsum("bij,bj->bi", binv_c, ev, precision=HIGHEST)
+            t2 = jnp.einsum("bwki,bi->bwk", j_x, w, precision=HIGHEST)
+            u = jnp.einsum("bwkc,bwk->bwc", j_cam, t2, precision=HIGHEST)
             return jnp.dot(oh.T, u.reshape(B * W, 18),
-                           preferred_element_type=dtype)
+                           preferred_element_type=dtype, precision=HIGHEST)
 
         map_args = [_chunks(plane, B), _chunks(blk.j_x, B),
                     _chunks(blk.j_cam, B), _chunks(binv_b, B),
@@ -1167,10 +1040,11 @@ def _e_dot_cells(
             oh = _onehot(cell.reshape(-1), Vl, dtype)
             v_table = v_cells[args[3]] if local else v_cells
             vslot = jnp.dot(
-                oh, v_table, preferred_element_type=dtype
+                oh, v_table, preferred_element_type=dtype,
+                precision=HIGHEST
             ).reshape(B, W, 18)
-            t = jnp.einsum("bwkc,bwc->bwk", j_cam, vslot)
-            return jnp.einsum("bwki,bwk->bi", j_x, t)
+            t = jnp.einsum("bwkc,bwc->bwk", j_cam, vslot, precision=HIGHEST)
+            return jnp.einsum("bwki,bwk->bi", j_x, t, precision=HIGHEST)
 
         map_args = [_chunks(plane, B), _chunks(blk.j_x, B),
                     _chunks(blk.j_cam, B)]
@@ -1188,9 +1062,8 @@ def _e_dot_cells(
 # ---------------------------------------------------------------------------
 # Dual-layout sweeps (impl='dual')
 # ---------------------------------------------------------------------------
-# The one-hot sweeps above pay M x V x 18 MXU work per direction, and the
-# 18-wide payload caps MXU utilization at 18/128 of the array. The dual
-# layout removes the one-hots entirely: j_cam is materialized ONCE per LM
+# The one-hot sweeps above pay M x V x 18 multiply-adds per direction. The
+# dual layout removes the one-hots entirely: j_cam is materialized ONCE per LM
 # step in camera-major rows (CamLayout), where the cell-space lookup is a
 # row broadcast and the binning is a within-row reduce. Each sweep then
 # only permutes 2-float-per-slot intermediates between the layouts
@@ -1220,8 +1093,10 @@ def _dual_bin_system(tiles: TileIndex, sys: TileSystem, jcam_cms: tuple,
     h = jnp.zeros((V, 18, 18), dtype)
     for cb, jc in zip(cam.buckets, jcam_cms):
         r_cm = r_pad[cb.slot_idx]
-        g = g.at[cb.row_cell].add(jnp.einsum("rskc,rsk->rc", jc, r_cm))
-        h = h.at[cb.row_cell].add(jnp.einsum("rski,rskj->rij", jc, jc))
+        g = g.at[cb.row_cell].add(jnp.einsum("rskc,rsk->rc", jc, r_cm,
+                                             precision=HIGHEST))
+        h = h.at[cb.row_cell].add(jnp.einsum("rski,rskj->rij", jc, jc,
+                                             precision=HIGHEST))
     return g, h
 
 
@@ -1229,7 +1104,8 @@ def _dual_pass_t(cam: CamLayout, jcam_cms: tuple, v_cells, dtype):
     """Pass A: t = J_cam v per slot in cam-major order, permuted back to
     point-major flat order (M_flat, 2)."""
     parts = [
-        jnp.einsum("rskc,rc->rsk", jc, v_cells[cb.row_cell]).reshape(-1, 2)
+        jnp.einsum("rskc,rc->rsk", jc, v_cells[cb.row_cell],
+                   precision=HIGHEST).reshape(-1, 2)
         for cb, jc in zip(cam.buckets, jcam_cms)
     ]
     t_cm = jnp.concatenate(parts + [jnp.zeros((1, 2), dtype)])
@@ -1247,9 +1123,11 @@ def _dual_mid(sys: TileSystem, binv, t_pm, rhs_mode: bool):
             ev = sys.g_p[off_pt: off_pt + Nb]
         else:
             t_b = t_pm[off_slot: off_slot + Nb * W].reshape(Nb, W, 2)
-            ev = jnp.einsum("bwki,bwk->bi", blk.j_x, t_b)
-        w = jnp.einsum("bij,bj->bi", binv[off_pt: off_pt + Nb], ev)
-        t2_parts.append(jnp.einsum("bwki,bi->bwk", blk.j_x, w).reshape(-1, 2))
+            ev = jnp.einsum("bwki,bwk->bi", blk.j_x, t_b, precision=HIGHEST)
+        w = jnp.einsum("bij,bj->bi", binv[off_pt: off_pt + Nb], ev,
+                       precision=HIGHEST)
+        t2_parts.append(jnp.einsum("bwki,bi->bwk", blk.j_x, w,
+                                   precision=HIGHEST).reshape(-1, 2))
         off_pt += Nb
         off_slot += Nb * W
     return jnp.concatenate(t2_parts)
@@ -1266,7 +1144,8 @@ def _dual_sweep(tiles: TileIndex, sys: TileSystem, binv, jcam_cms: tuple,
     t2_pad = jnp.concatenate([t2_pm, jnp.zeros((1, 2), dtype)])
     out = jnp.zeros((V, 18), dtype)
     for cb, jc in zip(cam.buckets, jcam_cms):
-        u = jnp.einsum("rskc,rsk->rc", jc, t2_pad[cb.slot_idx])
+        u = jnp.einsum("rskc,rsk->rc", jc, t2_pad[cb.slot_idx],
+                       precision=HIGHEST)
         out = out.at[cb.row_cell].add(u)
     return out
 
@@ -1281,7 +1160,8 @@ def _dual_edot(tiles: TileIndex, sys: TileSystem, jcam_cms: tuple, v_cells):
     for blk in sys.blocks:
         Nb, W = blk.j_x.shape[:2]
         t_b = t_pm[off_slot: off_slot + Nb * W].reshape(Nb, W, 2)
-        parts.append(jnp.einsum("bwki,bwk->bi", blk.j_x, t_b))
+        parts.append(jnp.einsum("bwki,bwk->bi", blk.j_x, t_b,
+                                precision=HIGHEST))
         off_pt += Nb
         off_slot += Nb * W
     tail = sys.g_p.shape[0] - off_pt
@@ -1332,15 +1212,15 @@ def _block_jacobi(sys: TileSystem, cells: CellTable, cam_aug, cam_free,
 
     def precond(v):
         vb = v.reshape(n_rows6, 6)
-        return jnp.einsum("bij,bj->bi", inv_blocks, vb).reshape(-1)
+        return jnp.einsum("bij,bj->bi", inv_blocks, vb,
+                          precision=HIGHEST).reshape(-1)
 
     return precond
 
 
 def make_tile_step(options: SolverOptions, template: BAParams,
                    chunk_obs: int = CHUNK_OBS, axis: str | None = None,
-                   impl: str = "xla", sweep_dtype=None,
-                   sweep_block_n: int = 256):
+                   impl: str = "xla"):
     """Pure LM step over the tile layout:
     step(state, tiles, cam_free, point_free_t) -> (state, info).
 
@@ -1349,32 +1229,20 @@ def make_tile_step(options: SolverOptions, template: BAParams,
     and trust-region scalars are psum'd, exactly like the grid engine's
     distributed mode (SURVEY.md section 2.5).
 
-    ``impl='pallas'`` routes every observation sweep (rhs, PCG matvec
-    corrections, E dc) through the fused VMEM kernel
-    (kernels/tile_pallas.py) for buckets of width <= MAX_KERNEL_WIDTH; the
-    one-hot selection never leaves VMEM. Wider buckets fall back to the XLA
-    sweep.
-
-    ``impl='dual'`` (fastest at large cell counts) uses the camera-major
+    ``impl='xla'`` runs the one-hot chunk sweeps above. ``impl='dual'`` (fastest at large cell counts) uses the camera-major
     dual layout: requires ``with_cam_layout(tiles)``; sweeps and camera
     binning carry no one-hot matmuls at all (see the dual-layout section
     above). Single-device only for now (incompatible with ``axis``).
-
-    ``sweep_dtype`` (pallas impl; e.g. ``jnp.bfloat16``) stores the
-    per-slot Jacobian planes the PCG sweeps read 31+ times per step in
-    reduced precision — the sweeps are the step's HBM hot spot (~1.15 GB
-    of jcam reads each at BAL scale) — while every accumulation stays f32.
-    The LM system itself (gc/hcc, trial costs, trust region) is untouched;
-    an inexact-Jacobian PCG step only perturbs the search direction, which
-    the accept/reject test already guards. ``sweep_block_n`` is the sweep
-    kernels' lane-block size.
     """
     from deeparc_tpu.residuals.reprojection import camera_dim, unflatten_camera
     from deeparc_tpu.solver.ba import StepInfo
 
+    if impl not in ("xla", "dual"):
+        raise ValueError(f"tile engine impl must be 'xla' or 'dual', "
+                         f"got {impl!r}")
     if impl == "dual" and axis is not None:
         raise ValueError("impl='dual' does not support the sharded step yet;"
-                         " use impl='xla' or 'pallas' with axis")
+                         " use impl='xla' with axis")
 
     C = camera_dim(template)
 
@@ -1388,124 +1256,6 @@ def make_tile_step(options: SolverOptions, template: BAParams,
         out = unflatten_camera(cam_vec, template)
         return dataclasses.replace(out, points=points)
 
-    def _make_kernel_sweeps(tiles, sys, binv, lin_planes=None):
-        """Pre-transpose per-bucket planes once; return (sweep, edot).
-
-        ``lin_planes`` (from :func:`linearize_tiles_fused`) supplies the
-        transposed planes directly — the fused linearize kernel emits them
-        in sweep layout, so ``pack_bucket_planes`` is skipped entirely.
-        """
-        from deeparc_tpu.kernels.tile_pallas import (
-            MAX_KERNEL_WIDTH, pack_bucket_planes, tile_sweep,
-            tile_sweep_local,
-        )
-
-        interpret = jax.default_backend() != "tpu"
-        V = sys.hcc_cells.shape[0]
-        dtype = sys.g_p.dtype
-        zeros_v = jnp.zeros((V, 18), dtype)
-        planes = []
-        offset = 0
-        for i, b in enumerate(tiles.buckets):
-            Nb, W = b.cell.shape
-            if lin_planes is not None and lin_planes[i] is not None:
-                cell_t, jcam_t, jx_t = lin_planes[i][:3]
-                binv_t = binv[offset: offset + Nb].reshape(Nb, 9).T
-                gp_t = sys.g_p[offset: offset + Nb].T
-                planes.append((cell_t, jcam_t, jx_t, binv_t, gp_t,
-                               b.loc[1]))
-            elif W > MAX_KERNEL_WIDTH:
-                planes.append(None)
-            else:
-                blk = sys.blocks[i]
-                plane = b.loc[0] if b.loc else b.cell
-                cell_t, jcam_t, jx_t = pack_bucket_planes(
-                    blk.j_x, blk.j_cam, plane)
-                if sweep_dtype is not None:
-                    jcam_t = jcam_t.astype(sweep_dtype)
-                    jx_t = jx_t.astype(sweep_dtype)
-                binv_t = binv[offset: offset + Nb].reshape(Nb, 9).T
-                gp_t = sys.g_p[offset: offset + Nb].T
-                chunk_cells = b.loc[1] if b.loc else None
-                planes.append((cell_t, jcam_t, jx_t, binv_t, gp_t,
-                               chunk_cells))
-            offset += Nb
-
-        def _local_v(v_cells, chunk_cells):
-            if v_cells is None:
-                n_chunks, Vl = chunk_cells.shape
-                return jnp.zeros((n_chunks, 18, Vl), dtype)
-            return jnp.swapaxes(v_cells[chunk_cells], 1, 2)
-
-        def sweep(v_cells, rhs_mode):
-            out = jnp.zeros((V, 18), dtype)
-            off = 0
-            for i, b in enumerate(tiles.buckets):
-                Nb, W = b.cell.shape
-                if planes[i] is None:
-                    sub_tiles = TileIndex(
-                        cells=tiles.cells, buckets=(b,),
-                        row_of_point=tiles.row_of_point)
-                    sub_sys = sys._replace(
-                        g_p=sys.g_p[off: off + Nb],
-                        blocks=(sys.blocks[i],))
-                    out = out + _e_sweep(sub_tiles, sub_sys,
-                                         binv[off: off + Nb],
-                                         v_cells, rhs_mode, chunk_obs)
-                else:
-                    cell_t, jcam_t, jx_t, binv_t, gp_t, cc = planes[i]
-                    mode = "rhs" if rhs_mode else "matvec"
-                    if cc is not None:
-                        bins = tile_sweep_local(
-                            cell_t, jcam_t, jx_t, binv_t, gp_t,
-                            _local_v(None if rhs_mode else v_cells, cc),
-                            mode=mode, block_n=sweep_block_n,
-                            interpret=interpret)
-                        out = out.at[cc.reshape(-1)].add(
-                            bins.reshape(-1, 18))
-                    else:
-                        out = out + tile_sweep(
-                            cell_t, jcam_t, jx_t, binv_t, gp_t,
-                            zeros_v if rhs_mode else v_cells,
-                            mode=mode, block_n=sweep_block_n,
-                            interpret=interpret)
-                off += Nb
-            return out
-
-        def edot(v_cells):
-            parts = []
-            off = 0
-            for i, b in enumerate(tiles.buckets):
-                Nb, W = b.cell.shape
-                if planes[i] is None:
-                    sub_tiles = TileIndex(
-                        cells=tiles.cells, buckets=(b,),
-                        row_of_point=tiles.row_of_point)
-                    sub_sys = sys._replace(
-                        g_p=sys.g_p[off: off + Nb], blocks=(sys.blocks[i],))
-                    parts.append(_e_dot_cells(sub_tiles, sub_sys, v_cells,
-                                              chunk_obs)[:Nb])
-                else:
-                    cell_t, jcam_t, jx_t, binv_t, gp_t, cc = planes[i]
-                    if cc is not None:
-                        parts.append(tile_sweep_local(
-                            cell_t, jcam_t, jx_t, binv_t, gp_t,
-                            _local_v(v_cells, cc),
-                            mode="edot", block_n=sweep_block_n,
-                            interpret=interpret))
-                    else:
-                        parts.append(tile_sweep(
-                            cell_t, jcam_t, jx_t, binv_t, gp_t, v_cells,
-                            mode="edot", block_n=sweep_block_n,
-                            interpret=interpret))
-                off += Nb
-            tail = sys.g_p.shape[0] - off
-            if tail > 0:
-                parts.append(jnp.zeros((tail, 3), dtype))
-            return jnp.concatenate(parts)
-
-        return sweep, edot
-
     def step(state: TileState, tiles: TileIndex, cam_free, point_free_t):
         cols = tiles.cells.cols
         dtype = state.points.dtype
@@ -1513,24 +1263,9 @@ def make_tile_step(options: SolverOptions, template: BAParams,
         sp = _cell_slot_params(params, tiles.cells)
         packed = pack_cells(sp, tiles.cells, cam_free)
 
-        # the fused linearize engages on real TPU only: its interpret-mode
-        # execution is far slower than the XLA path it replaces (the sweep
-        # kernels stay interpreted on CPU because they're the only
-        # implementation of their layout; the linearize has linearize_tiles).
-        # Dispatch is PER BUCKET: wide/tail buckets of a heavy-tailed track
-        # distribution run the XLA path without disabling the fused kernel
-        # for the narrow buckets that carry most observations.
-        lin_planes = None
-        if (impl == "pallas" and jax.default_backend() == "tpu"
-                and any(bucket_fused_ok(b) for b in tiles.buckets)):
-            sys, lin_planes = linearize_tiles_mixed(
-                state.points, packed, tiles, point_free_t, C, chunk_obs,
-                options.loss, options.loss_scale,
-                plane_dtype=sweep_dtype)
-        else:
-            sys = linearize_tiles(
-                state.points, packed, tiles, point_free_t, C, chunk_obs,
-                options.loss, options.loss_scale, bin_cam=(impl != "dual"))
+        sys = linearize_tiles(
+            state.points, packed, tiles, point_free_t, C, chunk_obs,
+            options.loss, options.loss_scale, bin_cam=(impl != "dual"))
         if impl == "dual":
             if not tiles.cam:
                 raise ValueError(
@@ -1580,10 +1315,7 @@ def make_tile_step(options: SolverOptions, template: BAParams,
                           options.max_lm_diagonal)
         cam_aug = d2c / state.tr.radius
 
-        if impl == "pallas":
-            sweep_fn, edot_fn = _make_kernel_sweeps(tiles, sys, binv,
-                                                    lin_planes)
-        elif impl == "dual":
+        if impl == "dual":
             sweep_fn = lambda v_cells, rhs_mode: _dual_sweep(
                 tiles, sys, binv, jcam_cms, v_cells, rhs_mode)
             edot_fn = lambda v_cells: _dual_edot(
@@ -1599,7 +1331,8 @@ def make_tile_step(options: SolverOptions, template: BAParams,
 
         def hcc_matvec(v):
             v_cells = flat_to_cells(v, cols)
-            out = jnp.einsum("vij,vj->vi", sys.hcc_cells, v_cells)
+            out = jnp.einsum("vij,vj->vi", sys.hcc_cells, v_cells,
+                             precision=HIGHEST)
             return cells_to_flat(out, cols, C)
 
         def matvec(v):
@@ -1621,16 +1354,19 @@ def make_tile_step(options: SolverOptions, template: BAParams,
 
         dc_cells = flat_to_cells(dc, cols)
         e_dc = edot_fn(dc_cells)
-        dp = -jnp.einsum("bij,bj->bi", binv, sys.g_p + e_dc) * point_free_t
+        dp = -jnp.einsum("bij,bj->bi", binv, sys.g_p + e_dc,
+                         precision=HIGHEST) * point_free_t
 
         # model cost change from the quadratic pieces
-        dtg = allsum(jnp.vdot(dp, sys.g_p)) + jnp.vdot(dc, sys.g_c)
+        dtg = (allsum(jnp.vdot(dp, sys.g_p, precision=HIGHEST))
+               + jnp.vdot(dc, sys.g_c, precision=HIGHEST))
         dhd = (
             allsum(
-                jnp.einsum("bi,bij,bj->", dp, sys.hpp, dp)
-                + 2.0 * jnp.vdot(dp.reshape(-1), e_dc.reshape(-1))
+                jnp.einsum("bi,bij,bj->", dp, sys.hpp, dp, precision=HIGHEST)
+                + 2.0 * jnp.vdot(dp.reshape(-1), e_dc.reshape(-1),
+                                 precision=HIGHEST)
             )
-            + jnp.vdot(dc, hcc_matvec(dc))
+            + jnp.vdot(dc, hcc_matvec(dc), precision=HIGHEST)
         )
         mcc = -(dtg + 0.5 * dhd)
 
@@ -1659,10 +1395,11 @@ def make_tile_step(options: SolverOptions, template: BAParams,
         grad_max = jnp.maximum(
             jnp.max(jnp.abs(sys.g_c)), allmax(jnp.max(jnp.abs(sys.g_p)))
         )
-        step_norm = jnp.sqrt(allsum(jnp.vdot(dp, dp)) + jnp.vdot(dc, dc))
+        step_norm = jnp.sqrt(allsum(jnp.vdot(dp, dp, precision=HIGHEST))
+                             + jnp.vdot(dc, dc, precision=HIGHEST))
         x_norm = jnp.sqrt(
-            allsum(jnp.vdot(state.points, state.points))
-            + jnp.vdot(state.cam_vec, state.cam_vec)
+            allsum(jnp.vdot(state.points, state.points, precision=HIGHEST))
+            + jnp.vdot(state.cam_vec, state.cam_vec, precision=HIGHEST)
         )
         cost_change = state.cost - new_cost
         ftol = accept & (
@@ -1762,7 +1499,6 @@ def solve_tiles_prepared(
     driver: str = "python",
     chunk_obs: int = CHUNK_OBS,
     impl: str = "xla",
-    sweep_dtype=None,
     checkpoint_path: str | None = None,
     checkpoint_every: int = 10,
     resume: bool = False,
@@ -1797,7 +1533,7 @@ def solve_tiles_prepared(
     cache = _cache if _cache is not None else {}
     if "step" not in cache:
         cache["step"] = make_tile_step(options, params_t, chunk_obs,
-                                       impl=impl, sweep_dtype=sweep_dtype)
+                                       impl=impl)
     step = cache["step"]
     state = init_tile_state(params_t, tiles, options, cam_free,
                             chunk_obs=chunk_obs)

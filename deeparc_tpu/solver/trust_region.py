@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 
@@ -60,4 +61,6 @@ def model_cost_change(
     j_dx: jnp.ndarray, r: jnp.ndarray
 ) -> jnp.ndarray:
     """m(0) - m(dx) for m(dx) = 0.5 || r + J dx ||^2, from the J dx product."""
-    return -(jnp.vdot(r, j_dx) + 0.5 * jnp.vdot(j_dx, j_dx))
+    hi = jax.lax.Precision.HIGHEST
+    return -(jnp.vdot(r, j_dx, precision=hi)
+             + 0.5 * jnp.vdot(j_dx, j_dx, precision=hi))

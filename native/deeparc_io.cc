@@ -1,6 +1,6 @@
 // Native high-throughput parsers for .deeparc and BAL problem files.
 //
-// The runtime-side (non-TPU-compute) native component of the framework: the
+// The host-side (non-device-compute) native component of the framework: the
 // reference's DeepArcManager::read tokenizes with iostream extraction
 // (src/DeepArcManager.cc:26-164), which is the slowest possible path for the
 // multi-hundred-MB BAL problems the distributed configs use. This parser

@@ -1,20 +1,28 @@
-"""Fused Pallas linearization vs the plane-form XLA reference.
+"""Fused banded linearization (Pallas, Triton route) vs the plane-form XLA
+reference, plus the kernel dispatch.
 
-Runs the kernels in interpreter mode on CPU (the real-TPU path compiles the
-same program); every output of ``kernels.linearize_grid`` must match
+The kernel runs in the Pallas interpreter on CPU (on a CUDA GPU the same
+program compiles through Triton; tests/test_gpu_kernels.py). Without band
+prep the kernel walks one band of all cells, so every output must match
 ``rig_planes.linearize_planes`` bit-for-tolerance, including the E column
-permutation (SURVEY.md section 7 stage 6).
+permutation (SURVEY.md section 7 stage 6). The plain banded path
+(``rig_planes.linearize_banded``) gets the same cases.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from deeparc_tpu.io import make_hemisphere_rig
-from deeparc_tpu.kernels import cost_grid, linearize_grid, native_of_flat
+from deeparc_tpu.kernels.rig_pallas import (
+    linearize_grid_banded, native_of_flat,
+)
 from deeparc_tpu.scene import freeze_masks, from_deeparc
-from deeparc_tpu.solver.rig_grid import grid_from_scene, slot_params
-from deeparc_tpu.solver.rig_planes import cost_planes, linearize_planes
+from deeparc_tpu.solver.rig_grid import grid_cost, grid_from_scene, slot_params
+from deeparc_tpu.solver.rig_planes import (
+    cost_planes, linearize_banded, linearize_planes,
+)
 
 
 @pytest.fixture(scope="module", params=[
@@ -43,8 +51,21 @@ def _free_tables(scene, grid, free):
     return rows[grid.slot_outer], rows[grid.slot_inner], intr[grid.slot_intr]
 
 
+def _one_band(pts, pf, sp, grid, fo, fi, fk, impl, **kw):
+    """The whole grid as one band from cell 0 (no band prep)."""
+    if impl == "kernel":
+        return linearize_grid_banded(pts, pf, sp, grid, fo, fi, fk,
+                                     block_np=16, interpret=True, **kw)
+    T = grid.mask.shape[1]
+    n_tiles = -(-pts.shape[0] // 16)
+    return linearize_banded(pts, pf, sp, grid, fo, fi, fk,
+                            jnp.zeros((n_tiles,), jnp.int32),
+                            -(-T // 8) * 8, block_np=16, **kw)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
 @pytest.mark.parametrize("loss,scale", [("trivial", 0.5), ("cauchy", 2.0)])
-def test_linearize_matches_planes(problem, loss, scale):
+def test_linearize_matches_planes(problem, loss, scale, impl):
     scene, grid, free = problem
     sp = slot_params(scene.params, grid)
     fo, fi, fk = _free_tables(scene, grid, free)
@@ -55,10 +76,8 @@ def test_linearize_matches_planes(problem, loss, scale):
         pts, sp, grid, grid.xy0, grid.xy1, grid.mask, fo, fi, fk, pf,
         loss=loss, loss_scale=scale,
     )
-    got = linearize_grid(
-        pts, pf, sp, grid, fo, fi, fk, loss=loss, loss_scale=scale,
-        block_np=16, interpret=True,
-    )
+    got = _one_band(pts, pf, sp, grid, fo, fi, fk, impl, loss=loss,
+                    loss_scale=scale)
     cost_r, gp_r, hpp_r, gs_r, hcc_r, e_r = ref
     cost_g, gp_g, hpp_g, gs_g, hcc_g, e_g = got
 
@@ -68,24 +87,28 @@ def test_linearize_matches_planes(problem, loss, scale):
     np.testing.assert_allclose(gs_g, gs_r, rtol=1e-8, atol=1e-9)
     np.testing.assert_allclose(hcc_g, hcc_r, rtol=1e-8, atol=1e-9)
 
-    R_rows = grid.onehot_outer.shape[1]
-    K = grid.onehot_intr.shape[1]
-    e_flat = np.asarray(e_g)[..., native_of_flat(R_rows, K)]
-    np.testing.assert_allclose(e_flat, np.asarray(e_r), rtol=1e-8, atol=1e-10)
+    e_g = np.asarray(e_g)
+    if impl == "kernel":
+        R_rows = grid.onehot_outer.shape[1]
+        K = grid.onehot_intr.shape[1]
+        e_g = e_g[..., native_of_flat(R_rows, K)]
+    np.testing.assert_allclose(e_g, np.asarray(e_r), rtol=1e-8, atol=1e-10)
 
 
 def test_cost_matches_planes(problem):
+    """The trial-cost pass runs in plain XLA for every impl ('pallas'
+    shares the plane pass)."""
     scene, grid, _ = problem
     sp = slot_params(scene.params, grid)
     ref = cost_planes(scene.params.points, sp, grid.xy0, grid.xy1, grid.mask,
                       loss="huber", loss_scale=3.0)
-    got = cost_grid(scene.params.points, sp, grid, loss="huber",
-                    loss_scale=3.0, block_np=16, interpret=True)
+    got = grid_cost(scene.params.points, sp, grid, loss="huber",
+                    loss_scale=3.0, chunk_size=16, impl="pallas")
     np.testing.assert_allclose(got, ref, rtol=1e-10)
 
 
 def test_perm_roundtrip():
-    from deeparc_tpu.kernels import flat_of_native
+    from deeparc_tpu.kernels.rig_pallas import flat_of_native
 
     R, K = 7, 3
     nof = native_of_flat(R, K)
@@ -98,8 +121,6 @@ def test_grid_step_pallas_matches_planes(problem):
     """Full LM step through the solver with impl='pallas' (interpreted on
     CPU) must produce the same accept decision, cost, and iterates as the
     plane-form XLA path — exercises the E native-order wiring end to end."""
-    import jax
-
     from deeparc_tpu.config import SolverOptions
     from deeparc_tpu.residuals.reprojection import flatten_camera
     from deeparc_tpu.solver.rig_grid import init_grid_state, make_grid_step
@@ -111,7 +132,8 @@ def test_grid_step_pallas_matches_planes(problem):
 
     outs = {}
     for impl in ("planes", "pallas"):
-        step = make_grid_step(options, scene.params, chunk_size=32, impl=impl)
+        step = make_grid_step(options, scene.params, chunk_size=32, impl=impl,
+                              interpret=True)
         state = init_grid_state(scene.params, grid, options)
         state, info = jax.jit(step)(state, grid, cam_free, point_free)
         state, info = jax.jit(step)(state, grid, cam_free, point_free)
@@ -123,3 +145,67 @@ def test_grid_step_pallas_matches_planes(problem):
     np.testing.assert_allclose(s_k.cost, s_p.cost, rtol=1e-6)
     np.testing.assert_allclose(s_k.points, s_p.points, rtol=1e-5, atol=1e-8)
     np.testing.assert_allclose(s_k.cam_vec, s_p.cam_vec, rtol=1e-5, atol=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch: one capability check, no silent interpreter
+# ---------------------------------------------------------------------------
+
+
+def test_capability_check_on_cpu():
+    from deeparc_tpu.kernels import kernel_platform, resolve_grid_impl
+
+    assert jax.devices()[0].platform == "cpu"
+    assert kernel_platform() is None
+    assert resolve_grid_impl("auto", jnp.float32)[0] == "planes"
+    assert resolve_grid_impl("auto", jnp.float64)[0] == "planes"
+    assert resolve_grid_impl("xla", jnp.float32)[0] == "planes"
+    assert resolve_grid_impl("einsum", jnp.float64)[0] == "einsum"
+
+
+@pytest.mark.parametrize("platform,dtype,want", [
+    ("triton", jnp.float32, "pallas"),
+    ("triton", jnp.float64, "planes"),
+    (None, jnp.float32, "planes"),
+])
+def test_auto_impl_choice(monkeypatch, platform, dtype, want):
+    """impl='auto': the kernel on a CUDA GPU for float32, the plain plane
+    path for float64 or without a GPU."""
+    import deeparc_tpu.kernels as K
+
+    monkeypatch.setattr(K, "kernel_platform", lambda: platform)
+    impl, reason = K.resolve_grid_impl("auto", dtype)
+    assert impl == want and reason
+
+
+def test_explicit_pallas_float64_raises(monkeypatch):
+    import deeparc_tpu.kernels as K
+
+    monkeypatch.setattr(K, "kernel_platform", lambda: "triton")
+    assert K.resolve_grid_impl("pallas", jnp.float32)[0] == "pallas"
+    with pytest.raises(ValueError, match="float32"):
+        K.resolve_grid_impl("pallas", jnp.float64)
+
+
+def test_pallas_without_gpu_raises_instead_of_interpreting(problem):
+    """Asking for the compiled kernel off a CUDA GPU raises; only an
+    explicit interpret=True runs the interpreter."""
+    from deeparc_tpu.config import SolverOptions
+    from deeparc_tpu.kernels import resolve_grid_impl
+    from deeparc_tpu.residuals.reprojection import flatten_camera
+    from deeparc_tpu.solver.rig_grid import init_grid_state, make_grid_step
+
+    scene, grid, free = problem
+    sp = slot_params(scene.params, grid)
+    fo, fi, fk = _free_tables(scene, grid, free)
+    with pytest.raises(RuntimeError, match="CUDA GPU"):
+        resolve_grid_impl("pallas", jnp.float32)
+    with pytest.raises(RuntimeError, match="CUDA GPU"):
+        linearize_grid_banded(scene.params.points, free.points, sp, grid,
+                              fo, fi, fk, block_np=16)
+    options = SolverOptions(linear_solver="dense_schur")
+    step = make_grid_step(options, scene.params, chunk_size=32,
+                          impl="pallas")
+    state = init_grid_state(scene.params, grid, options)
+    with pytest.raises(RuntimeError, match="CUDA GPU"):
+        step(state, grid, flatten_camera(free), free.points)

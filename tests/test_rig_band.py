@@ -1,10 +1,11 @@
-"""Live-band grid engine: band prep invariants + banded-kernel parity.
+"""Live-band grid engine: band prep invariants + banded parity.
 
-The banded kernels (kernels/rig_pallas.py banded section) must produce
-bit-for-tolerance the same linearization as the plane-form XLA reference on
-the band-prepared grid — banding only skips cell slabs that band_grid
-guarantees are dead. Runs in interpreter mode on CPU (the real-TPU path
-compiles the same program)."""
+Both banded linearizations — the fused kernel (kernels/rig_pallas.py, in
+the Pallas interpreter on CPU; it compiles through Triton on a CUDA GPU)
+and the plain XLA path (rig_planes.linearize_banded) — must produce
+bit-for-tolerance the same linearization as the plane-form reference on the
+band-prepared grid: banding only skips cell slabs that band_grid guarantees
+are dead."""
 
 import jax
 import jax.numpy as jnp
@@ -12,20 +13,27 @@ import numpy as np
 import pytest
 
 from deeparc_tpu.io.synthetic import make_grid_rig_device
-from deeparc_tpu.kernels import native_of_flat
 from deeparc_tpu.kernels.rig_pallas import (
-    cost_grid_banded,
     linearize_grid_banded,
+    native_of_flat,
 )
 from deeparc_tpu.solver.rig_band import band_grid
 from deeparc_tpu.solver.rig_grid import slot_params
-from deeparc_tpu.solver.rig_planes import cost_planes, linearize_planes
+from deeparc_tpu.solver.rig_planes import (
+    cost_banded,
+    cost_planes,
+    linearize_banded,
+    linearize_planes,
+)
+
+# grid impl under test: the interpreted kernel and the plain XLA path
+IMPLS = ["pallas", "planes"]
 
 
 @pytest.fixture(scope="module")
 def problem():
     # f64 so the parity comparison is not limited by f32 accumulation-order
-    # noise (tests/conftest.py enables x64; the TPU path runs f32)
+    # noise (tests/conftest.py enables x64; the GPU kernel runs f32)
     params, grid, _ = make_grid_rig_device(
         n_arc=3, n_ring=16, n_points=420, occlusion_rings=4, visibility=0.9,
         pixel_noise=0.8, point_noise=0.02, seed=5, dtype=jnp.float64,
@@ -64,8 +72,8 @@ def test_band_prep_invariants(problem):
 
 
 def test_band_grid_declines_without_locality():
-    """Dense and uniform-random masks must fall back to the monolithic
-    kernels (banding is an optimization, never a requirement)."""
+    """Dense and uniform-random masks must fall back to the unbanded paths
+    (banding is an optimization, never a requirement)."""
     params_d, grid_d, _ = make_grid_rig_device(
         n_arc=3, n_ring=16, n_points=256, occlusion_rings=None,
         visibility=None, seed=1, dtype=jnp.float64)
@@ -83,8 +91,9 @@ def _free_tables(grid, dtype):
     return ones, ones, ones
 
 
+@pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("loss,scale", [("trivial", 0.5), ("huber", 2.0)])
-def test_banded_linearize_matches_planes(problem, loss, scale):
+def test_banded_linearize_matches_planes(problem, loss, scale, impl):
     params, grid, prep = problem
     g = prep.grid
     pts = params.points[prep.perm]
@@ -96,12 +105,19 @@ def test_banded_linearize_matches_planes(problem, loss, scale):
         pts, sp, g, g.xy0, g.xy1, g.mask, fo, fi, fk, pf,
         loss=loss, loss_scale=scale,
     )
-    got = linearize_grid_banded(
-        pts, pf, sp, g, fo, fi, fk, g.band[0],
-        w_band=prep.lin_groups or prep.w_band,
-        loss=loss, loss_scale=scale, block_np=64, interpret=True,
-        pxm=g.band[2],
-    )
+    if impl == "pallas":
+        got = linearize_grid_banded(
+            pts, pf, sp, g, fo, fi, fk, g.band[0],
+            w_band=prep.lin_groups or prep.w_band,
+            loss=loss, loss_scale=scale, block_np=64, interpret=True,
+            pxm=g.band[2],
+        )
+    else:
+        got = linearize_banded(
+            pts, pf, sp, g, fo, fi, fk, g.band[0],
+            prep.lin_groups or prep.w_band,
+            loss=loss, loss_scale=scale, block_np=64, pxm=g.band[2],
+        )
     cost_r, gp_r, hpp_r, gs_r, hcc_r, e_r = ref
     cost_g, gp_g, hpp_g, gs_g, hcc_g, e_g = got
 
@@ -111,9 +127,11 @@ def test_banded_linearize_matches_planes(problem, loss, scale):
     np.testing.assert_allclose(gs_g, gs_r, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(hcc_g, hcc_r, rtol=1e-4, atol=1e-4)
 
-    R_rows = g.onehot_outer.shape[1]
-    K = g.onehot_intr.shape[1]
-    e_flat = np.asarray(e_g)[..., native_of_flat(R_rows, K)]
+    e_flat = np.asarray(e_g)
+    if impl == "pallas":
+        R_rows = g.onehot_outer.shape[1]
+        K = g.onehot_intr.shape[1]
+        e_flat = e_flat[..., native_of_flat(R_rows, K)]
     np.testing.assert_allclose(e_flat, np.asarray(e_r), rtol=1e-4, atol=1e-5)
 
 
@@ -124,16 +142,17 @@ def test_banded_cost_matches_planes(problem):
     sp = slot_params(params, g)
     ref = cost_planes(pts, sp, g.xy0, g.xy1, g.mask,
                       loss="cauchy", loss_scale=3.0)
-    got = cost_grid_banded(pts, sp, g, g.band[1],
-                           w_band=prep.cost_groups or prep.w_band_cost,
-                           loss="cauchy", loss_scale=3.0, block_np=128,
-                           interpret=True, pxm=g.band[3])
+    got = cost_banded(pts, sp, g, g.band[1],
+                      prep.cost_groups or prep.w_band_cost,
+                      loss="cauchy", loss_scale=3.0, block_np=128,
+                      pxm=g.band[3])
     np.testing.assert_allclose(got, ref, rtol=1e-5)
 
 
-def test_banded_step_matches_planes(problem):
-    """Two full LM steps: banded pallas == plane-form XLA on the banded
-    grid (same accept decisions, costs, iterates)."""
+@pytest.mark.parametrize("impl", IMPLS)
+def test_banded_step_matches_planes(problem, impl):
+    """Two full LM steps: banded (kernel or plain) == unbanded plane-form
+    XLA on the banded grid (same accept decisions, costs, iterates)."""
     from deeparc_tpu.config import SolverOptions
     from deeparc_tpu.solver.rig_grid import init_grid_state, make_grid_step
 
@@ -149,25 +168,27 @@ def test_banded_step_matches_planes(problem):
     options = SolverOptions(linear_solver="dense_schur")
     bws, bbs = prep.widths
     outs = {}
-    for impl, bw, bb in (("planes", (0, 0), (0, 0)), ("pallas", bws, bbs)):
-        step = make_grid_step(options, params_s, chunk_size=64, impl=impl,
-                              band_widths=bw, band_blocks=bb)
-        state = init_grid_state(params_s, g, options, impl=impl,
+    for key, im, bw, bb in (("ref", "planes", (0, 0), (0, 0)),
+                            ("band", impl, bws, bbs)):
+        step = make_grid_step(options, params_s, chunk_size=64, impl=im,
+                              band_widths=bw, band_blocks=bb, interpret=True)
+        state = init_grid_state(params_s, g, options, impl=im,
                                 band_widths=bw, band_blocks=bb)
         state, info = jax.jit(step)(state, g, cam_free, point_free)
         state, info = jax.jit(step)(state, g, cam_free, point_free)
-        outs[impl] = (state, info)
+        outs[key] = (state, info)
 
-    s_p, i_p = outs["planes"]
-    s_k, i_k = outs["pallas"]
+    s_p, i_p = outs["ref"]
+    s_k, i_k = outs["band"]
     assert bool(i_p.accepted) == bool(i_k.accepted)
     np.testing.assert_allclose(s_k.cost, s_p.cost, rtol=1e-5)
     np.testing.assert_allclose(s_k.points, s_p.points, rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(s_k.cam_vec, s_p.cam_vec, rtol=1e-4, atol=1e-6)
 
 
-def test_banded_step_intr_frozen_ext_only_E(problem):
-    """band_intr_frozen=True: the kernel omits the intrinsic E columns
+@pytest.mark.parametrize("impl", IMPLS)
+def test_banded_step_intr_frozen_ext_only_E(problem, impl):
+    """band_intr_frozen=True: the banded paths omit the intrinsic E columns
     (ext-only E) — with intrinsics actually frozen this must reproduce the
     plane-form step exactly."""
     from deeparc_tpu.config import SolverOptions
@@ -188,19 +209,19 @@ def test_banded_step_intr_frozen_ext_only_E(problem):
     options = SolverOptions(linear_solver="dense_schur")
     bws, bbs = prep.widths
     outs = {}
-    for impl, bw, bb, frz in (("planes", (0, 0), (0, 0), False),
-                              ("pallas", bws, bbs, True)):
-        step = make_grid_step(options, params_s, chunk_size=64, impl=impl,
+    for key, im, bw, bb, frz in (("ref", "planes", (0, 0), (0, 0), False),
+                                 ("band", impl, bws, bbs, True)):
+        step = make_grid_step(options, params_s, chunk_size=64, impl=im,
                               band_widths=bw, band_blocks=bb,
-                              band_intr_frozen=frz)
-        state = init_grid_state(params_s, g, options, impl=impl,
+                              band_intr_frozen=frz, interpret=True)
+        state = init_grid_state(params_s, g, options, impl=im,
                                 band_widths=bw, band_blocks=bb)
         state, info = jax.jit(step)(state, g, cam_free, point_free)
         state, info = jax.jit(step)(state, g, cam_free, point_free)
-        outs[impl] = (state, info)
+        outs[key] = (state, info)
 
-    s_p, i_p = outs["planes"]
-    s_k, i_k = outs["pallas"]
+    s_p, i_p = outs["ref"]
+    s_k, i_k = outs["band"]
     assert bool(i_p.accepted) == bool(i_k.accepted)
     np.testing.assert_allclose(s_k.cost, s_p.cost, rtol=1e-5)
     np.testing.assert_allclose(s_k.points, s_p.points, rtol=1e-4, atol=1e-6)
@@ -208,10 +229,11 @@ def test_banded_step_intr_frozen_ext_only_E(problem):
                                atol=1e-6)
 
 
-def test_solve_ba_grid_band_auto_matches_planes():
-    """solve_ba_grid(band='auto', impl='pallas') on an occlusion scene:
-    banding engages internally (points permuted in, un-permuted out) and
-    the returned params must match the plane-form solve in ORIGINAL point
+@pytest.mark.parametrize("impl", IMPLS)
+def test_solve_ba_grid_band_auto_matches_planes(impl):
+    """solve_ba_grid(band='auto') on an occlusion scene: banding engages
+    internally (points permuted in, un-permuted out) and the returned
+    params must match the unbanded plane-form solve in ORIGINAL point
     order."""
     import dataclasses
 
@@ -234,16 +256,17 @@ def test_solve_ba_grid_band_auto_matches_planes():
     )
     options = SolverOptions(linear_solver="dense_schur", max_iterations=3)
     res_p = solve_ba_grid(params, grid, free, options, impl="planes",
-                          chunk_size=128)
-    res_b = solve_ba_grid(params, grid, free, options, impl="pallas",
-                          chunk_size=128, band="auto")
+                          chunk_size=128, band="none")
+    res_b = solve_ba_grid(params, grid, free, options, impl=impl,
+                          chunk_size=128, band="auto", interpret=True)
     np.testing.assert_allclose(res_b.cost, res_p.cost, rtol=1e-5)
     np.testing.assert_allclose(np.asarray(res_b.params.points),
                                np.asarray(res_p.params.points),
                                rtol=1e-4, atol=1e-6)
 
 
-def test_band_reuse_across_filter_rounds():
+@pytest.mark.parametrize("impl", IMPLS)
+def test_band_reuse_across_filter_rounds(impl):
     """band_reuse: the pipeline's second round refreshes the stored prep
     (band_grid_update — same orderings/widths/starts, planes re-gathered
     for the SHRUNK mask) and must match a fresh prep's solve exactly
@@ -268,8 +291,9 @@ def test_band_reuse_across_filter_rounds():
     )
     options = SolverOptions(linear_solver="dense_schur", max_iterations=2)
     state: dict = {}
-    solve_ba_grid(params, grid, free, options, impl="pallas",
-                  chunk_size=128, band="auto", band_reuse=state)
+    solve_ba_grid(params, grid, free, options, impl=impl,
+                  chunk_size=128, band="auto", band_reuse=state,
+                  interpret=True)
     assert state["prep"] is not None
 
     # filter round: drop ~15% of live observations
@@ -278,11 +302,11 @@ def test_band_reuse_across_filter_rounds():
     drop = (rng.random(mask.shape) < 0.15) & (mask > 0.5)
     grid2 = grid._replace(mask=jnp.asarray(mask * ~drop, mask.dtype))
 
-    res_reuse = solve_ba_grid(params, grid2, free, options, impl="pallas",
+    res_reuse = solve_ba_grid(params, grid2, free, options, impl=impl,
                               chunk_size=128, band="auto",
-                              band_reuse=state)
-    res_fresh = solve_ba_grid(params, grid2, free, options, impl="pallas",
-                              chunk_size=128, band="auto")
+                              band_reuse=state, interpret=True)
+    res_fresh = solve_ba_grid(params, grid2, free, options, impl=impl,
+                              chunk_size=128, band="auto", interpret=True)
     np.testing.assert_allclose(res_reuse.cost, res_fresh.cost, rtol=1e-8)
     np.testing.assert_allclose(np.asarray(res_reuse.params.points),
                                np.asarray(res_fresh.params.points),
