@@ -102,12 +102,11 @@ def parse_args(argv=None):
                         "neighborhood)")
     p.add_argument("--chunk-size", type=int, default=8192)
     p.add_argument("--impl", default=None,
-                   choices=["planes", "einsum", "pallas", "xla", "dual"],
-                   help="kernel implementation. grid engine: planes | "
-                        "einsum | pallas (default: kernels.resolve_grid_impl"
-                        "('auto') — the fused Triton kernel for float32 on "
-                        "a CUDA GPU). tiles engine: xla (default) | dual "
-                        "(camera-major layout, no one-hot sweeps)")
+                   choices=["planes", "einsum", "xla", "dual"],
+                   help="implementation. grid engine: planes (default; "
+                        "banded when visibility has locality) | einsum. "
+                        "tiles engine: xla (default) | dual (camera-major "
+                        "layout, no one-hot sweeps)")
     p.add_argument("--cg-iters", type=int, default=30,
                    help="fixed PCG iterations (tiles/indexed engines)")
     p.add_argument("--fuse-trial", action="store_true",
@@ -201,7 +200,7 @@ def grid_flops_per_step(n_points, T, R, K, n_live, w_lin=0, w_cost=0):
     (N,T)@(T,R|K) matmul), the (2N,18,T) slot Gram, the Jacobian plane
     algebra (~650 flop/slot), and the trial-cost pass (~120 flop/slot).
     Slots = N*T regardless of visibility (the mask eats dead slots) —
-    UNLESS the live-band kernels run, in which case only N*w_band slots
+    UNLESS the live-band path runs, in which case only N*w_band slots
     execute per pass (w_lin/w_cost from solver/rig_band.band_grid).
     """
     slots = n_points * (w_lin or T)
@@ -320,20 +319,17 @@ def measure(args) -> dict:
     cfg = build_config(args)
     band_detail = None
 
-    valid_impls = {"grid": {"planes", "einsum", "pallas"},
-                   "tiles": {"xla", "pallas", "dual"},
+    valid_impls = {"grid": {"planes", "einsum"},
+                   "tiles": {"xla", "dual"},
                    "indexed": set()}
     if args.impl is not None and args.impl not in valid_impls[args.engine]:
         raise SystemExit(
             f"--impl {args.impl} is not valid for --engine {args.engine} "
             f"(choices: {sorted(valid_impls[args.engine]) or 'none'})"
         )
-    if args.impl is None and args.engine == "grid":
-        from deeparc_tpu.kernels import resolve_grid_impl
-
-        args.impl = resolve_grid_impl("auto", jnp.float32)[0]
-    elif args.impl is None:
-        args.impl = {"tiles": "xla", "indexed": None}[args.engine]
+    if args.impl is None:
+        args.impl = {"grid": "planes", "tiles": "xla",
+                     "indexed": None}[args.engine]
 
     est_flops = None
     if args.engine == "grid":
@@ -354,8 +350,7 @@ def measure(args) -> dict:
         # automatically when it does not
         band_widths = band_blocks = (0, 0)
         band_detail = None
-        if (args.impl in ("planes", "pallas") and not args.dense
-                and not args.no_band):
+        if args.impl == "planes" and not args.dense and not args.no_band:
             import dataclasses as _dc
 
             from deeparc_tpu.solver.rig_band import band_grid
@@ -599,7 +594,9 @@ def measure(args) -> dict:
                 points, sp, g, cf, pf, args.chunk_size, impl=args.impl,
                 band_width=bw[0], band_block=bb[0],
                 band_intr_frozen=intr_frozen)
-            return sys.cost
+            # the whole system, as the step consumes it: returning only
+            # the cost would let XLA drop everything else
+            return sys
 
         @jax.jit
         def _cost_pass(points, g):
@@ -608,12 +605,12 @@ def measure(args) -> dict:
                                  band_width=bw[1], band_block=bb[1])
 
         def _time(fn, *a, reps=max(args.iters // 2, 3)):
-            float(fn(*a))            # compile + warm
-            float(fn(*a))
+            jax.block_until_ready(fn(*a))    # compile + warm
+            jax.block_until_ready(fn(*a))
             t0 = time.time()
             for _ in range(reps):
                 r = fn(*a)
-            float(r)
+            jax.block_until_ready(r)
             return (time.time() - t0) / reps
 
         lin_s = _time(_lin_pass, state.points, grid, cam_free, point_free)
@@ -885,8 +882,7 @@ def measure_pipeline(args) -> dict:
 def measure_time_to_rmse(args) -> dict:
     """Wall-clock to target reprojection RMSE (BASELINE row 4).
 
-    Runs the grid engine (default impl: resolve_grid_impl('auto')) on the
-    sparse-rig
+    Runs the grid engine (default impl: banded planes) on the sparse-rig
     config from its noisy init with REAL Ceres-default convergence
     tolerances — unlike the iter/s benchmark, steps can be rejected and the
     trust region does its actual job. Iterations run in on-device
@@ -906,14 +902,13 @@ def measure_time_to_rmse(args) -> dict:
 
     from deeparc_tpu.config import SolverOptions
     from deeparc_tpu.io.synthetic import make_grid_rig_device
-    from deeparc_tpu.kernels import resolve_grid_impl
     from deeparc_tpu.solver.rig_grid import init_grid_state, make_grid_step
 
     if args.impl is None:
-        args.impl = resolve_grid_impl("auto", jnp.float32)[0]
-    if args.impl not in {"planes", "einsum", "pallas"}:
+        args.impl = "planes"
+    if args.impl not in {"planes", "einsum"}:
         raise SystemExit(f"--impl {args.impl} is not valid for --time-to-rmse"
-                         " (grid engine: planes | einsum | pallas)")
+                         " (grid engine: planes | einsum)")
 
     params, grid, _ = make_grid_rig_device(
         n_arc=cfg["n_arc"], n_ring=cfg["n_ring"],
@@ -923,7 +918,7 @@ def measure_time_to_rmse(args) -> dict:
         seed=cfg["seed"], dtype=jnp.float32,
     )
     band_widths = band_blocks = (0, 0)
-    if args.impl in ("planes", "pallas") and not args.no_band:
+    if args.impl == "planes" and not args.no_band:
         import dataclasses as _dc
 
         from deeparc_tpu.solver.rig_band import band_grid
@@ -1095,8 +1090,7 @@ def cpu_baseline(args) -> float:
         "--engine", args.engine, "--chunk-size", str(args.chunk_size),
         "--cg-iters", str(args.cg_iters),
     ]
-    # CPU comparator runs the pure-XLA impl (a Pallas kernel would run in
-    # the interpreter on CPU — not a baseline)
+    # CPU comparator runs the same default impls
     if args.engine == "grid":
         cmd += ["--impl", "planes"]
     elif args.engine == "tiles":

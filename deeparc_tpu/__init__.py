@@ -8,9 +8,8 @@ solve-then-filter bundle adjustment — plus the numerical engine the reference
 delegated to Ceres (forward-mode autodiff, Levenberg-Marquardt trust region,
 Schur-complement elimination, reduced camera solves), reimplemented here as
 batched block-sparse linear algebra on flat arrays, jit/``lax.while_loop``
-drivers, a fused Pallas kernel (Triton route, CUDA GPUs) for the rig
-engine's hot path, and a ``shard_map`` distributed Schur complement over
-device meshes. The package name records where the system comes from; it
+drivers, and a ``shard_map`` distributed Schur complement over device
+meshes. The package name records where the system comes from; it
 runs on CUDA GPUs (NVIDIA H100) and, for tests, on the CPU.
 
 Layer map (mirrors SURVEY.md section 7):
@@ -19,7 +18,6 @@ Layer map (mirrors SURVEY.md section 7):
   scene      flat-array scene representation (replaces the pointer graph)
   residuals/ batched reprojection + hemisphere residuals and Jacobian blocks
   solver/    LM trust-region loop, Schur complement, PCG
-  kernels/   fused Pallas (Triton) linearization kernel + capability check
   parallel/  shard_map distributed Schur over a device mesh
   pipeline/  hemisphere fit -> freeze solve -> filter loop driver, CLI
 """

@@ -81,8 +81,7 @@ class PipelineOptions:
     engine: str = "auto"
     # mesh size for the *-sharded engines (None = all visible devices)
     devices: int | None = None
-    # kernel implementation inside the chosen engine. 'auto' = the grid
-    # engine's fused Triton kernel for float32 on a CUDA GPU
-    # (kernels.resolve_grid_impl), the plain XLA paths otherwise; or force
-    # 'pallas' / 'planes' (grid) / 'xla' / 'dual' (tiles).
+    # implementation inside the chosen engine: 'auto' = the plane path
+    # (grid, banded when visibility has locality) and 'xla' (tiles); or
+    # force 'planes' / 'einsum' (grid) / 'xla' / 'dual' (tiles).
     impl: str = "auto"

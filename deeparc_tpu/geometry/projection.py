@@ -17,8 +17,8 @@ where the "inner" slot is the ring extrinsic and the "outer" the arc
 extrinsic for composed rig cameras, and the inner slot points at a frozen
 identity extrinsic for single-extrinsic observations (see scene.py). The
 structure masks (focal_shared, m1, m2) are per-intrinsic constants, so the
-whole model is a single branch-free vmap-able function — exactly what the MXU
-/ VPU want, and what makes forward-mode Jacobians one fused XLA computation.
+whole model is a single branch-free vmap-able function, which is what makes
+forward-mode Jacobians one fused XLA computation.
 
 Note the reference, despite its Bundler comment (hh:43-44), does NOT negate
 the perspective divide; this implementation is faithful to the code, not the

@@ -657,9 +657,8 @@ def make_tile_rig_device(
     #
     # rig visibility is uniform over ALL T cells (no locality to exploit),
     # but T itself is small — attach IDENTITY per-chunk tables (local id ==
-    # global id, every chunk's table is the whole cell list) so the fused
-    # Pallas linearize kernel (tile_linearize_local) engages on this
-    # config too. Pad the table width to a sublane multiple; pad entries
+    # global id, every chunk's table is the whole cell list) so the
+    # local-table path runs on this config too. Pad the table width to a sublane multiple; pad entries
     # are clamped to cell 0 (bucket_with_local's zero-fill convention) and
     # bin zero contributions (no slot carries a local id >= T).
     nch = N_pad // rpc

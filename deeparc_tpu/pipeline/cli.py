@@ -46,11 +46,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mesh size for the *-sharded engines "
                         "(default: all visible devices)")
     p.add_argument("--impl", default="auto",
-                   choices=["auto", "pallas", "planes", "einsum", "xla",
-                            "dual"],
-                   help="kernel implementation inside the engine (auto = "
-                        "the grid engine's fused Triton kernel for float32 "
-                        "on a CUDA GPU, plain XLA paths otherwise)")
+                   choices=["auto", "planes", "einsum", "xla", "dual"],
+                   help="implementation inside the engine (auto = the "
+                        "grid engine's plane path, banded when visibility "
+                        "has locality; the tile engine's xla path)")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--debug-nans", action="store_true",
                    help="enable jax_debug_nans: fail loudly at the first NaN "
@@ -73,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="random structure init (teabottle_green_randompoint config)")
     p.add_argument("--occlusion-rings", type=int, default=None,
                    help="synthetic rig: self-occlusion window width in "
-                        "turntable steps (realistic visibility; the banded "
-                        "grid kernels exploit it)")
+                        "turntable steps (realistic visibility; the grid "
+                        "engine's live-band path exploits it)")
     p.add_argument("--visibility", type=float, default=1.0,
                    help="synthetic rig: random visibility thinning")
     p.add_argument("--seed", type=int, default=0)

@@ -20,8 +20,7 @@ the one-hot selections and the Gram sums.
 
 :func:`linearize_banded` / :func:`cost_banded` are the same math over the
 live-band layout of :mod:`rig_band` (each point tile pays only its band of
-cells) — the plain-XLA banded path and the reference for the fused kernel
-in ``kernels/rig_pallas.py``.
+cells): the grid engine's path on sparse rigs.
 
 Derivation shortcuts (vs the chain in ``rig_grid.grid_jacobians``, itself
 the closed form of ``src/snavely_reprojection_error.hh:38-118``):
@@ -190,7 +189,7 @@ def linearize_planes(
         jnp.stack([h[min(i, j), max(i, j)] for j in range(3)], axis=-1)
         for i in range(3)], axis=-2)
 
-    # camera side: one (2N, 18, T) stack -> batched MXU contractions
+    # camera side: one (2N, 18, T) stack -> batched contractions
     Jbig = jnp.stack(
         [jnp.stack(P[k], axis=1) for k in range(2)]
     ).reshape((-1,) + (18, mask.shape[1]))                  # (2N, 18, T)

@@ -8,15 +8,14 @@ equations of one LM iteration,
     [ E^T C ] [dc] = [-g_c]        C: (C, C) camera-camera
 
 are solved by eliminating every point's 3x3 block in parallel (closed-form
-batched inverses — pure VPU work) and solving the reduced camera system
+batched inverses, elementwise work) and solving the reduced camera system
 
     S dc = -g_c + E^T B^-1 g_p,    S = C - E^T B^-1 E
 
 either densely (exact Cholesky — the DENSE_SCHUR analogue, for moderate
 camera counts) or matrix-free with preconditioned CG (ITERATIVE_SCHUR — the
 at-scale path: S is never materialized; each application of S is a handful of
-batched products over observations plus segment-sums, which is exactly the
-shape XLA tiles onto the MXU/VPU). Back-substitution then recovers
+batched products over observations plus segment-sums). Back-substitution then recovers
 dp = -B^-1 (g_p + E dc) pointwise.
 
 MEMORY LAYOUT: every per-observation array here is RANK-2 with M leading:

@@ -294,7 +294,7 @@ def tiles_from_scene(
     # Renumber cells by reverse Cuthill-McKee on the cell co-visibility
     # graph: real BAL scenes have strong co-visibility locality but
     # ARBITRARY camera ids, so without this the per-chunk local tables
-    # (TileBucket.loc — what makes the fused Pallas kernels fast) would be
+    # (TileBucket.loc — what keeps the one-hot sweeps narrow) would be
     # as wide as the whole camera list. RCM gives co-visible cells nearby
     # ids; combined with the mean-cell point ordering below, each chunk
     # then touches a narrow band of cells. Harmless when no locality

@@ -37,8 +37,7 @@ def cuda_gpu():
     """Skip unless the default JAX device is a CUDA GPU (decided at run
     time, never at import, so every xdist worker collects the same tests).
     """
-    from deeparc_tpu.kernels import kernel_platform
-
-    if kernel_platform() is None:
+    if jax.devices()[0].platform != "gpu":
         pytest.skip("needs a CUDA GPU; run on the card with "
-                    "`python -m pytest -m gpu tests/`")
+                    "`JAX_PLATFORMS=cuda python -m pytest -m gpu "
+                    "-p no:xdist tests/`")

@@ -1,7 +1,7 @@
-"""chip_smoke.py's phases at a tiny size on the CPU (kernels interpreted).
+"""chip_smoke.py's phases at a tiny size on the CPU.
 
-On the card the same functions run at full size with the compiled kernel;
-here they check wiring, shapes and the comparisons themselves.
+On the card the same functions run at full size; here they check wiring,
+shapes and the comparisons themselves.
 """
 
 import pytest
@@ -15,14 +15,14 @@ def test_main_refuses_without_gpu(capsys):
     assert out.out == "" and "no GPU" in out.err
 
 
-def test_kernel_parity_phase():
-    r = cs.phase_kernel_parity(n_points=2048, interpret=True)
-    assert r["kernel_ms"] > 0 and r["plain_ms"] > 0
-    assert set(r["errors"]) == set(cs.KERNEL_BOUNDS)
+def test_band_parity_phase():
+    r = cs.phase_band_parity(n_points=2048)
+    assert r["banded_ms"] > 0 and r["unbanded_ms"] > 0
+    assert set(r["errors"]) == set(cs.BAND_BOUNDS)
 
 
 def test_grid_step_phase():
-    r = cs.phase_grid_step(n_points=512, interpret=True)
+    r = cs.phase_grid_step(n_points=512)
     assert r["grid_cost"] <= cs.STEP_BOUNDS["grid_cost"]
 
 
@@ -33,9 +33,9 @@ def test_tile_step_phase():
 
 
 def test_flagship_phase():
-    r = cs.phase_flagship(n_points=1500, warm_rerun=False)
+    r = cs.phase_flagship(n_points=1500)
     assert r["final_rmse_px"] <= cs.RMSE_MAX_PX
-    assert r["points_alive"] == r["plain"]["points_alive"]
+    assert r["points_alive"] == r["warm"]["points_alive"]
 
 
 def test_tiles_pipeline_phase():

@@ -1,12 +1,13 @@
-"""Fused banded linearization (Pallas, Triton route) vs the plane-form XLA
-reference, plus the kernel dispatch.
+"""The plain paths that replaced the Pallas kernels, plus the dispatch.
 
-The kernel runs in the Pallas interpreter on CPU (on a CUDA GPU the same
-program compiles through Triton; tests/test_gpu_kernels.py). Without band
-prep the kernel walks one band of all cells, so every output must match
-``rig_planes.linearize_planes`` bit-for-tolerance, including the E column
-permutation (SURVEY.md section 7 stage 6). The plain banded path
-(``rig_planes.linearize_banded``) gets the same cases.
+The grid engine has no hand-written kernel: its linearization and cost
+pass are plain XLA over (N, T) planes or over each point tile's live band
+(``rig_planes.linearize_banded`` / ``cost_banded``). Here the banded
+linearize runs with the whole grid as one band from cell 0, at two point
+tile sizes (padding inside and across tiles), and every output must match
+``rig_planes.linearize_planes`` bit-for-tolerance. The dispatch names the
+implementations that exist and raises for any other, so asking for a
+kernel never quietly runs something else.
 """
 
 import jax
@@ -15,13 +16,12 @@ import numpy as np
 import pytest
 
 from deeparc_tpu.io import make_hemisphere_rig
-from deeparc_tpu.kernels.rig_pallas import (
-    linearize_grid_banded, native_of_flat,
-)
 from deeparc_tpu.scene import freeze_masks, from_deeparc
-from deeparc_tpu.solver.rig_grid import grid_cost, grid_from_scene, slot_params
+from deeparc_tpu.solver.rig_grid import (
+    grid_cost, grid_from_scene, resolve_grid_impl, slot_params,
+)
 from deeparc_tpu.solver.rig_planes import (
-    cost_planes, linearize_banded, linearize_planes,
+    cost_banded, cost_planes, linearize_banded, linearize_planes,
 )
 
 
@@ -51,21 +51,16 @@ def _free_tables(scene, grid, free):
     return rows[grid.slot_outer], rows[grid.slot_inner], intr[grid.slot_intr]
 
 
-def _one_band(pts, pf, sp, grid, fo, fi, fk, impl, **kw):
-    """The whole grid as one band from cell 0 (no band prep)."""
-    if impl == "kernel":
-        return linearize_grid_banded(pts, pf, sp, grid, fo, fi, fk,
-                                     block_np=16, interpret=True, **kw)
+def _one_band(pts, grid, block_np):
+    """(starts, width) of one band of all cells from cell 0 (no band prep)."""
     T = grid.mask.shape[1]
-    n_tiles = -(-pts.shape[0] // 16)
-    return linearize_banded(pts, pf, sp, grid, fo, fi, fk,
-                            jnp.zeros((n_tiles,), jnp.int32),
-                            -(-T // 8) * 8, block_np=16, **kw)
+    n_tiles = -(-pts.shape[0] // block_np)
+    return jnp.zeros((n_tiles,), jnp.int32), -(-T // 8) * 8
 
 
-@pytest.mark.parametrize("impl", ["kernel", "plain"])
+@pytest.mark.parametrize("block_np", [16, 64])
 @pytest.mark.parametrize("loss,scale", [("trivial", 0.5), ("cauchy", 2.0)])
-def test_linearize_matches_planes(problem, loss, scale, impl):
+def test_linearize_matches_planes(problem, loss, scale, block_np):
     scene, grid, free = problem
     sp = slot_params(scene.params, grid)
     fo, fi, fk = _free_tables(scene, grid, free)
@@ -76,51 +71,35 @@ def test_linearize_matches_planes(problem, loss, scale, impl):
         pts, sp, grid, grid.xy0, grid.xy1, grid.mask, fo, fi, fk, pf,
         loss=loss, loss_scale=scale,
     )
-    got = _one_band(pts, pf, sp, grid, fo, fi, fk, impl, loss=loss,
-                    loss_scale=scale)
-    cost_r, gp_r, hpp_r, gs_r, hcc_r, e_r = ref
-    cost_g, gp_g, hpp_g, gs_g, hcc_g, e_g = got
-
-    np.testing.assert_allclose(cost_g, cost_r, rtol=1e-9)
-    np.testing.assert_allclose(gp_g, gp_r, rtol=1e-8, atol=1e-10)
-    np.testing.assert_allclose(hpp_g, hpp_r, rtol=1e-8, atol=1e-10)
-    np.testing.assert_allclose(gs_g, gs_r, rtol=1e-8, atol=1e-9)
-    np.testing.assert_allclose(hcc_g, hcc_r, rtol=1e-8, atol=1e-9)
-
-    e_g = np.asarray(e_g)
-    if impl == "kernel":
-        R_rows = grid.onehot_outer.shape[1]
-        K = grid.onehot_intr.shape[1]
-        e_g = e_g[..., native_of_flat(R_rows, K)]
-    np.testing.assert_allclose(e_g, np.asarray(e_r), rtol=1e-8, atol=1e-10)
+    starts, width = _one_band(pts, grid, block_np)
+    got = linearize_banded(pts, pf, sp, grid, fo, fi, fk, starts, width,
+                           loss=loss, loss_scale=scale, block_np=block_np)
+    for g, r in zip(got[:5], ref[:5]):
+        np.testing.assert_allclose(g, r, rtol=1e-8, atol=1e-9)
+    np.testing.assert_allclose(np.asarray(got[5]), np.asarray(ref[5]),
+                               rtol=1e-8, atol=1e-10)
 
 
 def test_cost_matches_planes(problem):
-    """The trial-cost pass runs in plain XLA for every impl ('pallas'
-    shares the plane pass)."""
+    """The chunked plane cost pass (chunks smaller than the point count)
+    and the one-band banded cost pass both match the plane reference."""
     scene, grid, _ = problem
     sp = slot_params(scene.params, grid)
-    ref = cost_planes(scene.params.points, sp, grid.xy0, grid.xy1, grid.mask,
+    pts = scene.params.points
+    ref = cost_planes(pts, sp, grid.xy0, grid.xy1, grid.mask,
                       loss="huber", loss_scale=3.0)
-    got = grid_cost(scene.params.points, sp, grid, loss="huber",
-                    loss_scale=3.0, chunk_size=16, impl="pallas")
+    got = grid_cost(pts, sp, grid, loss="huber", loss_scale=3.0,
+                    chunk_size=16, impl="planes")
     np.testing.assert_allclose(got, ref, rtol=1e-10)
+    starts, width = _one_band(pts, grid, 16)
+    got_b = cost_banded(pts, sp, grid, starts, width, loss="huber",
+                        loss_scale=3.0, block_np=16)
+    np.testing.assert_allclose(got_b, ref, rtol=1e-10)
 
 
-def test_perm_roundtrip():
-    from deeparc_tpu.kernels.rig_pallas import flat_of_native
-
-    R, K = 7, 3
-    nof = native_of_flat(R, K)
-    fon = flat_of_native(R, K)
-    assert (fon[nof] == np.arange(6 * (R + K))).all()
-    assert (nof[fon] == np.arange(6 * (R + K))).all()
-
-
-def test_grid_step_pallas_matches_planes(problem):
-    """Full LM step through the solver with impl='pallas' (interpreted on
-    CPU) must produce the same accept decision, cost, and iterates as the
-    plane-form XLA path — exercises the E native-order wiring end to end."""
+def test_grid_step_planes_matches_einsum(problem):
+    """A full LM step through the solver: the plane path and the reference
+    einsum formulation make the same accept decision and iterates."""
     from deeparc_tpu.config import SolverOptions
     from deeparc_tpu.residuals.reprojection import flatten_camera
     from deeparc_tpu.solver.rig_grid import init_grid_state, make_grid_step
@@ -131,81 +110,75 @@ def test_grid_step_pallas_matches_planes(problem):
     point_free = free.points
 
     outs = {}
-    for impl in ("planes", "pallas"):
-        step = make_grid_step(options, scene.params, chunk_size=32, impl=impl,
-                              interpret=True)
-        state = init_grid_state(scene.params, grid, options)
+    for impl in ("planes", "einsum"):
+        step = make_grid_step(options, scene.params, chunk_size=32, impl=impl)
+        state = init_grid_state(scene.params, grid, options, impl=impl)
         state, info = jax.jit(step)(state, grid, cam_free, point_free)
         state, info = jax.jit(step)(state, grid, cam_free, point_free)
         outs[impl] = (state, info)
 
     s_p, i_p = outs["planes"]
-    s_k, i_k = outs["pallas"]
-    assert bool(i_p.accepted) == bool(i_k.accepted)
-    np.testing.assert_allclose(s_k.cost, s_p.cost, rtol=1e-6)
-    np.testing.assert_allclose(s_k.points, s_p.points, rtol=1e-5, atol=1e-8)
-    np.testing.assert_allclose(s_k.cam_vec, s_p.cam_vec, rtol=1e-5, atol=1e-8)
+    s_e, i_e = outs["einsum"]
+    assert bool(i_p.accepted) == bool(i_e.accepted)
+    np.testing.assert_allclose(s_e.cost, s_p.cost, rtol=1e-6)
+    np.testing.assert_allclose(s_e.points, s_p.points, rtol=1e-5, atol=1e-8)
+    np.testing.assert_allclose(s_e.cam_vec, s_p.cam_vec, rtol=1e-5, atol=1e-8)
 
 
 # ---------------------------------------------------------------------------
-# Dispatch: one capability check, no silent interpreter
+# Dispatch: the implementations that exist, and nothing else
 # ---------------------------------------------------------------------------
 
 
-def test_capability_check_on_cpu():
-    from deeparc_tpu.kernels import kernel_platform, resolve_grid_impl
-
-    assert jax.devices()[0].platform == "cpu"
-    assert kernel_platform() is None
-    assert resolve_grid_impl("auto", jnp.float32)[0] == "planes"
-    assert resolve_grid_impl("auto", jnp.float64)[0] == "planes"
-    assert resolve_grid_impl("xla", jnp.float32)[0] == "planes"
-    assert resolve_grid_impl("einsum", jnp.float64)[0] == "einsum"
-
-
-@pytest.mark.parametrize("platform,dtype,want", [
-    ("triton", jnp.float32, "pallas"),
-    ("triton", jnp.float64, "planes"),
-    (None, jnp.float32, "planes"),
+@pytest.mark.parametrize("asked,want", [
+    ("auto", "planes"), ("xla", "planes"), ("planes", "planes"),
+    ("einsum", "einsum"),
 ])
-def test_auto_impl_choice(monkeypatch, platform, dtype, want):
-    """impl='auto': the kernel on a CUDA GPU for float32, the plain plane
-    path for float64 or without a GPU."""
-    import deeparc_tpu.kernels as K
-
-    monkeypatch.setattr(K, "kernel_platform", lambda: platform)
-    impl, reason = K.resolve_grid_impl("auto", dtype)
-    assert impl == want and reason
+def test_resolve_grid_impl(asked, want):
+    assert resolve_grid_impl(asked) == want
 
 
-def test_explicit_pallas_float64_raises(monkeypatch):
-    import deeparc_tpu.kernels as K
-
-    monkeypatch.setattr(K, "kernel_platform", lambda: "triton")
-    assert K.resolve_grid_impl("pallas", jnp.float32)[0] == "pallas"
-    with pytest.raises(ValueError, match="float32"):
-        K.resolve_grid_impl("pallas", jnp.float64)
-
-
-def test_pallas_without_gpu_raises_instead_of_interpreting(problem):
-    """Asking for the compiled kernel off a CUDA GPU raises; only an
-    explicit interpret=True runs the interpreter."""
+@pytest.mark.parametrize("asked", ["pallas", "triton", "dual"])
+def test_unknown_grid_impl_raises(problem, asked):
+    """A kernel name (or a tile-engine impl) raises at every grid entry
+    point instead of running another path."""
     from deeparc_tpu.config import SolverOptions
-    from deeparc_tpu.kernels import resolve_grid_impl
-    from deeparc_tpu.residuals.reprojection import flatten_camera
-    from deeparc_tpu.solver.rig_grid import init_grid_state, make_grid_step
+    from deeparc_tpu.solver.rig_grid import make_grid_step, solve_ba_grid
 
     scene, grid, free = problem
-    sp = slot_params(scene.params, grid)
-    fo, fi, fk = _free_tables(scene, grid, free)
-    with pytest.raises(RuntimeError, match="CUDA GPU"):
-        resolve_grid_impl("pallas", jnp.float32)
-    with pytest.raises(RuntimeError, match="CUDA GPU"):
-        linearize_grid_banded(scene.params.points, free.points, sp, grid,
-                              fo, fi, fk, block_np=16)
-    options = SolverOptions(linear_solver="dense_schur")
-    step = make_grid_step(options, scene.params, chunk_size=32,
-                          impl="pallas")
-    state = init_grid_state(scene.params, grid, options)
-    with pytest.raises(RuntimeError, match="CUDA GPU"):
-        step(state, grid, flatten_camera(free), free.points)
+    with pytest.raises(ValueError, match="grid impl"):
+        resolve_grid_impl(asked)
+    with pytest.raises(ValueError, match="grid impl"):
+        make_grid_step(SolverOptions(), scene.params, impl=asked)
+    with pytest.raises(ValueError, match="grid impl"):
+        solve_ba_grid(scene.params, grid, free, SolverOptions(), impl=asked)
+
+
+def test_cli_offers_no_kernel_impl():
+    from deeparc_tpu.pipeline.cli import build_parser
+
+    p = build_parser()
+    assert p.parse_args(["x", "--impl", "auto"]).impl == "auto"
+    with pytest.raises(SystemExit):
+        p.parse_args(["x", "--impl", "pallas"])
+    with pytest.raises(SystemExit):
+        p.parse_args(["x", "--platform", "rocm"])
+
+
+def test_gpu_platform_without_gpu_fails():
+    """--platform gpu on a host without a CUDA GPU fails; it never carries
+    on on the CPU (the backend is already the CPU in this process, so the
+    check sees the platform mismatch)."""
+    from deeparc_tpu.pipeline.cli import main
+    from deeparc_tpu.utils.platform import PlatformError, select_platform
+
+    assert jax.devices()[0].platform == "cpu"
+    old = jax.config.jax_platforms
+    try:
+        assert select_platform(None) == "cpu"
+        with pytest.raises(PlatformError):
+            select_platform("gpu")
+        assert main(["--synthetic", "--platform", "gpu", "--quiet"]) == 2
+    finally:
+        jax.config.update("jax_platforms", old)
+    assert jax.devices()[0].platform == "cpu"

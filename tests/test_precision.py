@@ -35,7 +35,7 @@ def grid_problem():
 
 
 @pytest.mark.parametrize("impl,banded", [
-    ("planes", False), ("planes", True), ("pallas", True), ("einsum", False),
+    ("planes", False), ("planes", True), ("einsum", False),
 ])
 def test_grid_step_products_are_highest(grid_problem, impl, banded):
     import dataclasses
@@ -53,9 +53,26 @@ def test_grid_step_products_are_highest(grid_problem, impl, banded):
     options = SolverOptions(linear_solver="dense_schur")
     step = make_grid_step(options, params, chunk_size=64, impl=impl,
                           band_widths=bw, band_blocks=bb,
-                          band_intr_frozen=banded, interpret=True)
+                          band_intr_frozen=banded)
     state = init_grid_state(params, grid, options, impl=impl,
                             band_widths=bw, band_blocks=bb)
+    _assert_highest(jax.jit(step).lower(state, grid, cam_free,
+                                        point_free).as_text())
+
+
+def test_fused_trial_step_products_are_highest(grid_problem):
+    from deeparc_tpu.solver.rig_grid import (
+        init_grid_state_fused, make_grid_step,
+    )
+
+    params, grid, _ = grid_problem
+    C = 6 * (params.ext_rot.shape[0] + params.center.shape[0])
+    cam_free = jnp.ones((C,), jnp.float32).at[:6].set(0.0)
+    point_free = jnp.ones_like(params.points)
+    options = SolverOptions(linear_solver="dense_schur")
+    step = make_grid_step(options, params, chunk_size=64, fuse_trial=True)
+    state = init_grid_state_fused(params, grid, options, cam_free,
+                                  point_free, chunk_size=64)
     _assert_highest(jax.jit(step).lower(state, grid, cam_free,
                                         point_free).as_text())
 

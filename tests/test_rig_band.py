@@ -1,11 +1,11 @@
 """Live-band grid engine: band prep invariants + banded parity.
 
-Both banded linearizations — the fused kernel (kernels/rig_pallas.py, in
-the Pallas interpreter on CPU; it compiles through Triton on a CUDA GPU)
-and the plain XLA path (rig_planes.linearize_banded) — must produce
-bit-for-tolerance the same linearization as the plane-form reference on the
-band-prepared grid: banding only skips cell slabs that band_grid guarantees
-are dead."""
+The banded linearization (rig_planes.linearize_banded), with per-group
+widths or one uniform width, must produce bit-for-tolerance the same
+linearization as the plane-form reference on the band-prepared grid:
+banding only skips cell slabs that band_grid guarantees are dead. The
+banded LM steps and solves must match the unbanded plane path, with and
+without a robust loss."""
 
 import jax
 import jax.numpy as jnp
@@ -13,11 +13,11 @@ import numpy as np
 import pytest
 
 from deeparc_tpu.io.synthetic import make_grid_rig_device
-from deeparc_tpu.kernels.rig_pallas import (
-    linearize_grid_banded,
-    native_of_flat,
+from deeparc_tpu.solver.rig_band import (
+    band_grid,
+    banded_planes,
+    gather_banded_planes,
 )
-from deeparc_tpu.solver.rig_band import band_grid
 from deeparc_tpu.solver.rig_grid import slot_params
 from deeparc_tpu.solver.rig_planes import (
     cost_banded,
@@ -26,14 +26,17 @@ from deeparc_tpu.solver.rig_planes import (
     linearize_planes,
 )
 
-# grid impl under test: the interpreted kernel and the plain XLA path
-IMPLS = ["pallas", "planes"]
+# band layouts under test: per-group widths (what band_grid picks) and one
+# uniform width paid by every tile
+LAYOUTS = ["groups", "uniform"]
+# losses for the banded step/solve cases: plain least squares and robust
+LOSSES = ["trivial", "huber"]
 
 
 @pytest.fixture(scope="module")
 def problem():
     # f64 so the parity comparison is not limited by f32 accumulation-order
-    # noise (tests/conftest.py enables x64; the GPU kernel runs f32)
+    # noise (tests/conftest.py enables x64; the GPU runs f32)
     params, grid, _ = make_grid_rig_device(
         n_arc=3, n_ring=16, n_points=420, occlusion_rings=4, visibility=0.9,
         pixel_noise=0.8, point_noise=0.02, seed=5, dtype=jnp.float64,
@@ -91,9 +94,9 @@ def _free_tables(grid, dtype):
     return ones, ones, ones
 
 
-@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("loss,scale", [("trivial", 0.5), ("huber", 2.0)])
-def test_banded_linearize_matches_planes(problem, loss, scale, impl):
+def test_banded_linearize_matches_planes(problem, loss, scale, layout):
     params, grid, prep = problem
     g = prep.grid
     pts = params.points[prep.perm]
@@ -105,19 +108,16 @@ def test_banded_linearize_matches_planes(problem, loss, scale, impl):
         pts, sp, g, g.xy0, g.xy1, g.mask, fo, fi, fk, pf,
         loss=loss, loss_scale=scale,
     )
-    if impl == "pallas":
-        got = linearize_grid_banded(
-            pts, pf, sp, g, fo, fi, fk, g.band[0],
-            w_band=prep.lin_groups or prep.w_band,
-            loss=loss, loss_scale=scale, block_np=64, interpret=True,
-            pxm=g.band[2],
-        )
+    starts = g.band[0]
+    if layout == "groups":
+        w_band, pxm = prep.lin_groups or prep.w_band, g.band[2]
     else:
-        got = linearize_banded(
-            pts, pf, sp, g, fo, fi, fk, g.band[0],
-            prep.lin_groups or prep.w_band,
-            loss=loss, loss_scale=scale, block_np=64, pxm=g.band[2],
-        )
+        w_band = prep.w_band
+        n_tiles = starts.shape[0]
+        pxm = gather_banded_planes(banded_planes(g, n_tiles * 64, w_band),
+                                   starts, w_band, 64, 0, n_tiles)
+    got = linearize_banded(pts, pf, sp, g, fo, fi, fk, starts, w_band,
+                           loss=loss, loss_scale=scale, block_np=64, pxm=pxm)
     cost_r, gp_r, hpp_r, gs_r, hcc_r, e_r = ref
     cost_g, gp_g, hpp_g, gs_g, hcc_g, e_g = got
 
@@ -127,12 +127,8 @@ def test_banded_linearize_matches_planes(problem, loss, scale, impl):
     np.testing.assert_allclose(gs_g, gs_r, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(hcc_g, hcc_r, rtol=1e-4, atol=1e-4)
 
-    e_flat = np.asarray(e_g)
-    if impl == "pallas":
-        R_rows = g.onehot_outer.shape[1]
-        K = g.onehot_intr.shape[1]
-        e_flat = e_flat[..., native_of_flat(R_rows, K)]
-    np.testing.assert_allclose(e_flat, np.asarray(e_r), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(e_g), np.asarray(e_r), rtol=1e-4,
+                               atol=1e-5)
 
 
 def test_banded_cost_matches_planes(problem):
@@ -149,10 +145,10 @@ def test_banded_cost_matches_planes(problem):
     np.testing.assert_allclose(got, ref, rtol=1e-5)
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_banded_step_matches_planes(problem, impl):
-    """Two full LM steps: banded (kernel or plain) == unbanded plane-form
-    XLA on the banded grid (same accept decisions, costs, iterates)."""
+@pytest.mark.parametrize("loss", LOSSES)
+def test_banded_step_matches_planes(problem, loss):
+    """Two full LM steps: banded == unbanded plane-form XLA on the banded
+    grid (same accept decisions, costs, iterates)."""
     from deeparc_tpu.config import SolverOptions
     from deeparc_tpu.solver.rig_grid import init_grid_state, make_grid_step
 
@@ -165,14 +161,14 @@ def test_banded_step_matches_planes(problem, impl):
     cam_free = jnp.ones((C,), params.points.dtype).at[:6].set(0.0)
     point_free = jnp.ones_like(params_s.points)
 
-    options = SolverOptions(linear_solver="dense_schur")
+    options = SolverOptions(linear_solver="dense_schur", loss=loss,
+                            loss_scale=2.0)
     bws, bbs = prep.widths
     outs = {}
-    for key, im, bw, bb in (("ref", "planes", (0, 0), (0, 0)),
-                            ("band", impl, bws, bbs)):
-        step = make_grid_step(options, params_s, chunk_size=64, impl=im,
-                              band_widths=bw, band_blocks=bb, interpret=True)
-        state = init_grid_state(params_s, g, options, impl=im,
+    for key, bw, bb in (("ref", (0, 0), (0, 0)), ("band", bws, bbs)):
+        step = make_grid_step(options, params_s, chunk_size=64,
+                              band_widths=bw, band_blocks=bb)
+        state = init_grid_state(params_s, g, options,
                                 band_widths=bw, band_blocks=bb)
         state, info = jax.jit(step)(state, g, cam_free, point_free)
         state, info = jax.jit(step)(state, g, cam_free, point_free)
@@ -186,8 +182,8 @@ def test_banded_step_matches_planes(problem, impl):
     np.testing.assert_allclose(s_k.cam_vec, s_p.cam_vec, rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_banded_step_intr_frozen_ext_only_E(problem, impl):
+@pytest.mark.parametrize("loss", LOSSES)
+def test_banded_step_intr_frozen_ext_only_E(problem, loss):
     """band_intr_frozen=True: the banded paths omit the intrinsic E columns
     (ext-only E) — with intrinsics actually frozen this must reproduce the
     plane-form step exactly."""
@@ -206,15 +202,16 @@ def test_banded_step_intr_frozen_ext_only_E(problem, impl):
     cam_free = cam_free.at[6 * R:].set(0.0)       # frozen intrinsics
     point_free = jnp.ones_like(params_s.points)
 
-    options = SolverOptions(linear_solver="dense_schur")
+    options = SolverOptions(linear_solver="dense_schur", loss=loss,
+                            loss_scale=2.0)
     bws, bbs = prep.widths
     outs = {}
-    for key, im, bw, bb, frz in (("ref", "planes", (0, 0), (0, 0), False),
-                                 ("band", impl, bws, bbs, True)):
-        step = make_grid_step(options, params_s, chunk_size=64, impl=im,
+    for key, bw, bb, frz in (("ref", (0, 0), (0, 0), False),
+                             ("band", bws, bbs, True)):
+        step = make_grid_step(options, params_s, chunk_size=64,
                               band_widths=bw, band_blocks=bb,
-                              band_intr_frozen=frz, interpret=True)
-        state = init_grid_state(params_s, g, options, impl=im,
+                              band_intr_frozen=frz)
+        state = init_grid_state(params_s, g, options,
                                 band_widths=bw, band_blocks=bb)
         state, info = jax.jit(step)(state, g, cam_free, point_free)
         state, info = jax.jit(step)(state, g, cam_free, point_free)
@@ -229,8 +226,8 @@ def test_banded_step_intr_frozen_ext_only_E(problem, impl):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_solve_ba_grid_band_auto_matches_planes(impl):
+@pytest.mark.parametrize("loss", LOSSES)
+def test_solve_ba_grid_band_auto_matches_planes(loss):
     """solve_ba_grid(band='auto') on an occlusion scene: banding engages
     internally (points permuted in, un-permuted out) and the returned
     params must match the unbanded plane-form solve in ORIGINAL point
@@ -254,19 +251,20 @@ def test_solve_ba_grid_band_auto_matches_planes(impl):
         focal=jnp.zeros_like(params.focal),
         dist=jnp.zeros_like(params.dist),
     )
-    options = SolverOptions(linear_solver="dense_schur", max_iterations=3)
+    options = SolverOptions(linear_solver="dense_schur", max_iterations=3,
+                            loss=loss, loss_scale=2.0)
     res_p = solve_ba_grid(params, grid, free, options, impl="planes",
                           chunk_size=128, band="none")
-    res_b = solve_ba_grid(params, grid, free, options, impl=impl,
-                          chunk_size=128, band="auto", interpret=True)
+    res_b = solve_ba_grid(params, grid, free, options, impl="planes",
+                          chunk_size=128, band="auto")
     np.testing.assert_allclose(res_b.cost, res_p.cost, rtol=1e-5)
     np.testing.assert_allclose(np.asarray(res_b.params.points),
                                np.asarray(res_p.params.points),
                                rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_band_reuse_across_filter_rounds(impl):
+@pytest.mark.parametrize("loss", LOSSES)
+def test_band_reuse_across_filter_rounds(loss):
     """band_reuse: the pipeline's second round refreshes the stored prep
     (band_grid_update — same orderings/widths/starts, planes re-gathered
     for the SHRUNK mask) and must match a fresh prep's solve exactly
@@ -289,11 +287,11 @@ def test_band_reuse_across_filter_rounds(impl):
         focal=jnp.zeros_like(params.focal),
         dist=jnp.zeros_like(params.dist),
     )
-    options = SolverOptions(linear_solver="dense_schur", max_iterations=2)
+    options = SolverOptions(linear_solver="dense_schur", max_iterations=2,
+                            loss=loss, loss_scale=2.0)
     state: dict = {}
-    solve_ba_grid(params, grid, free, options, impl=impl,
-                  chunk_size=128, band="auto", band_reuse=state,
-                  interpret=True)
+    solve_ba_grid(params, grid, free, options, chunk_size=128, band="auto",
+                  band_reuse=state)
     assert state["prep"] is not None
 
     # filter round: drop ~15% of live observations
@@ -302,11 +300,10 @@ def test_band_reuse_across_filter_rounds(impl):
     drop = (rng.random(mask.shape) < 0.15) & (mask > 0.5)
     grid2 = grid._replace(mask=jnp.asarray(mask * ~drop, mask.dtype))
 
-    res_reuse = solve_ba_grid(params, grid2, free, options, impl=impl,
-                              chunk_size=128, band="auto",
-                              band_reuse=state, interpret=True)
-    res_fresh = solve_ba_grid(params, grid2, free, options, impl=impl,
-                              chunk_size=128, band="auto", interpret=True)
+    res_reuse = solve_ba_grid(params, grid2, free, options, chunk_size=128,
+                              band="auto", band_reuse=state)
+    res_fresh = solve_ba_grid(params, grid2, free, options, chunk_size=128,
+                              band="auto")
     np.testing.assert_allclose(res_reuse.cost, res_fresh.cost, rtol=1e-8)
     np.testing.assert_allclose(np.asarray(res_reuse.params.points),
                                np.asarray(res_fresh.params.points),
